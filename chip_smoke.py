@@ -1,0 +1,376 @@
+#!/usr/bin/env python3
+"""On-card smoke run of pytracking_tpu_torch, the PyTorch/CUDA port.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+  1. device   the card's name and power limit (nvidia-smi);
+  2. build    nvcc builds every kernel of the port from csrc/ (sm_90a);
+  3. kernels  each kernel against its plain PyTorch version on the card, at
+              the shapes the tracker gives it, with times beside the plain
+              version, the PyTorch library call and the card's bound;
+  4. main     TaMOs-R50 in bf16 at full width (random weights from a seed):
+              `initialize` on a synthetic 480x640 frame with two objects,
+              then `track` over 110 frames; finite outputs, and the kernel
+              launched once per encoder layer per frame;
+  5. gate     one TaMOsNet forward on the card (bf16, kernel) against the
+              same weights in float32 on the CPU (plain), at the main path's
+              sample size (L = 2592) and the limits of the JAX package's bf16
+              TaMOs gate.
+The port's entry points choose their own float32 precision (IEEE, not TF32);
+the script changes no precision setting outside the kernel comparison.
+The line before the last is a JSON object listing each kernel; the last line
+is {"ok": true, "device": {...}}.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit; boost 1830 MHz)
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+# special-function units: 132 SMs x 16 exponentials per clock x 1.83 GHz
+PEAK_SFU_EXP = 132 * 16 * 1.83e9
+
+TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
+                                    # of 24x36 tokens), heads, head dim
+N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
+WARMUP_FRAMES = 5
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def cuda_time_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device():
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
+    card = res.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
+          flush=True)
+    return card
+
+
+def phase_build():
+    from pytracking_tpu_torch.ops import fused_mha
+
+    t0 = time.perf_counter()
+    lib = fused_mha.build(verbose=True)
+    print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _slot_mask(B, L, entries, device):
+    """Keep mask of the encoder's (2 memory + 1 test frame) sequence with the
+    second memory frame masked in the given batch entries."""
+    keep = torch.ones(B, L, dtype=torch.bool)
+    frame = L // 3
+    keep[list(entries), frame:2 * frame] = False
+    return keep.to(device)
+
+
+def phase_kernels():
+    """Kernel against its plain version on the card. Returns K1's record and
+    the keep mask of the main path, on which the kernel is timed and bound."""
+    from pytracking_tpu_torch.ops import fused_mha
+    from pytracking_tpu_torch.utils.device import ieee_float32
+
+    fsa, ref = fused_mha.fused_self_attention, fused_mha.fused_self_attention_reference
+    g = torch.Generator().manual_seed(0)
+
+    def qkv(shape, dtype):
+        return [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3)]
+
+    B, L, H, D = TAMOS_SHAPE
+    q, k, v = qkv(TAMOS_SHAPE, torch.bfloat16)
+    # the main path's mask: with one frame stored, the cls (0) and bbreg (1)
+    # copies both mask the empty memory slot. The second mask is the one of a
+    # full memory whose second frame is not a ground-truth frame (bbreg only).
+    main_keep = _slot_mask(B, L, (0, 1), "cuda")
+    masks = {"main path (slot 1 masked in both entries)": main_keep,
+             "slot 1 masked in entry 1": _slot_mask(B, L, (1,), "cuda")}
+    with ieee_float32():     # the float32 references in IEEE float32, not TF32
+        err_plain = 0.0
+        for what, keep in masks.items():
+            out = fsa(q, k, v, keep)
+            torch.cuda.synchronize()
+            e = (out.float() - ref(q, k, v, keep).float()).abs().max().item()
+            e32 = (out.float() - ref(q.float(), k.float(), v.float(), keep)).abs().max().item()
+            print(f"kernel bf16 {TAMOS_SHAPE}, {what}: max|kernel-plain| {e:.3e} "
+                  f"(<= 2e-2), max|kernel-f32 oracle| {e32:.3e} (<= 0.05)", flush=True)
+            check(e <= 2e-2 and e32 <= 0.05, "bf16 kernel disagrees with plain")
+            err_plain = max(err_plain, e)
+
+        # float32, ragged L
+        q32, k32, v32 = qkv((2, 300, 8, 32), torch.float32)
+        keep32 = _slot_mask(2, 300, (1,), "cuda")
+        out32 = fsa(q32, k32, v32, keep32)
+        ref32 = ref(q32, k32, v32, keep32)
+        ok32 = torch.allclose(out32, ref32, rtol=1e-5, atol=2e-5)
+        print(f"kernel f32 (2, 300, 8, 32): max|kernel-plain| "
+              f"{(out32 - ref32).abs().max().item():.3e} (rtol 1e-5, atol 2e-5)", flush=True)
+        check(ok32, "f32 kernel disagrees with plain")
+
+        # a fully masked batch entry stays finite (mean of V)
+        full = torch.stack([torch.zeros(L, dtype=torch.bool), torch.ones(L, dtype=torch.bool)])
+        outm = fsa(q, k, v, full.cuda())
+        check(bool(torch.isfinite(outm).all()), "fully masked entry is not finite")
+        em = (outm[0].float() - v[0].float().mean(0)).abs().max().item()
+        print(f"fully masked entry: finite, max|out - mean(V)| {em:.3e}", flush=True)
+        check(em <= 2e-2, "fully masked entry is not the mean of V")
+
+        try:
+            fsa(q[:, :256], k, v)
+            raise SmokeFailure("cross-attention did not raise")
+        except ValueError:
+            print("cross-attention raises ValueError", flush=True)
+
+        # times and bound at the TaMOs shape on the main path's mask
+        keep = main_keep
+        kernel_ms = cuda_time_ms(lambda: fsa(q, k, v, keep))
+        plain_ms = cuda_time_ms(lambda: ref(q, k, v, keep))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_mask = keep[:, None, None, :]
+        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask))
+    # the work the function needs: every query against the keys its entry keeps
+    kept = int(keep.sum().item())
+    exps = float(H * L * kept)
+    flops = 4.0 * D * exps
+    nbytes = 4.0 * B * L * H * D * q.element_size() + B * L
+    times = {"bytes": nbytes / PEAK_HBM_BYTES, "matmul": flops / PEAK_BF16_FLOPS,
+             "exp": exps / PEAK_SFU_EXP}
+    bound_ms = max(times.values()) * 1e3
+    print(f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+          f"bound_us {bound_ms * 1e3:.2f} over {kept} kept keys of {B * L} (bytes "
+          f"{times['bytes'] * 1e6:.2f} us, matmul {times['matmul'] * 1e6:.2f} us, exp "
+          f"{times['exp'] * 1e6:.2f} us); {flops / kernel_ms / 1e9:.1f} TFLOP/s needed, "
+          f"kernel at {bound_ms / kernel_ms * 100:.1f}% of its bound", flush=True)
+    record = {"name": "fused_self_attention", "route": "cuda",
+              "source": "pytracking_tpu_torch/csrc/fused_mha.cu",
+              "replaces": "pytracking_tpu/ops/pallas_mha.py:82",
+              "launches": None, "max_abs_err": err_plain, "ms": kernel_ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": "bytes" if times["bytes"] >= max(times["matmul"], times["exp"])
+              else "operations",
+              "library_ms": library_ms}
+    return record, main_keep
+
+
+def synthetic_frame(rng_bg, t, H=480, W=640):
+    im = rng_bg.copy()
+    y, x = 150 + 2 * t, 200 + 3 * t
+    im[y:y + 80, x:x + 60] = [220, 60, 60]
+    y2, x2 = 260, 400 - 2 * t
+    im[y2:y2 + 60, x2:x2 + 80] = [60, 200, 80]
+    return im
+
+
+def phase_main(main_keep):
+    """Drives the tracker; checks that every encoder pass saw `main_keep`,
+    the mask the kernel phase timed and bound the kernel on."""
+    from pytracking_tpu_torch.ops import fused_mha
+    from pytracking_tpu_torch.parameter.tamos import tamos_resnet50
+    from pytracking_tpu_torch.trackers.tamos import TaMOsTracker
+
+    t0 = time.perf_counter()
+    spec = tamos_resnet50.parameters(device="cuda", dtype=torch.bfloat16, seed=0)
+    tracker = TaMOsTracker(spec.params, spec.net, device="cuda")
+    torch.cuda.synchronize()
+    print(f"main: TaMOs-R50 bf16 built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in spec.net.parameters()) / 1e6:.1f} M parameters",
+          flush=True)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    info = {"init_bbox": {"1": [200, 150, 60, 80], "2": [400, 260, 80, 60]},
+            "init_object_ids": ["1", "2"], "object_ids": ["1", "2"]}
+
+    enc_attn = spec.net.filter_predictor.transformer.encoder[0].self_attn
+    pad_masks = []                        # key_padding_mask, the 4th argument
+    hook = enc_attn.register_forward_pre_hook(lambda m, args: pad_masks.append(args[3]))
+    fused_mha.fused_self_attention.launches = 0
+    t0 = time.perf_counter()
+    tracker.initialize(synthetic_frame(bg, 0), info)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    frame_ms, outs = [], []
+    for t in range(1, N_FRAMES + 1):
+        im = synthetic_frame(bg, t)
+        t0 = time.perf_counter()
+        out = tracker.track(im)          # reads boxes back: ends in a sync
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = fused_mha.fused_self_attention.launches
+    hook.remove()
+
+    same = all(bool(torch.equal(~m, main_keep)) for m in pad_masks)
+    print(f"main: {len(pad_masks)} encoder passes, key mask equal to the timed "
+          f"kernel's ({int(main_keep.sum())} kept keys) in all: {same}", flush=True)
+    check(len(pad_masks) == N_FRAMES and same, "the main path's key mask is not the one "
+          "the kernel was timed and bound on")
+    for out in outs:
+        for oid in ("1", "2"):
+            bb = out["target_bbox"][oid]
+            check(len(bb) == 4 and all(math.isfinite(x) for x in bb), f"bad box {bb}")
+            check(math.isfinite(out["object_presence_score"][oid]), "bad score")
+    steady = frame_ms[WARMUP_FRAMES:]
+    print(f"main: init {init_ms:.1f} ms; track: {len(steady)} frames after "
+          f"{WARMUP_FRAMES} warm-up, median {np.median(steady):.3f} ms/frame, p90 "
+          f"{np.percentile(steady, 90):.3f}, min {np.min(steady):.3f}, max "
+          f"{np.max(steady):.3f}; first frame {frame_ms[0]:.1f} ms", flush=True)
+    print(f"main: last boxes {outs[-1]['target_bbox']} scores "
+          f"{outs[-1]['object_presence_score']} flags {tracker.state.flag.tolist()}",
+          flush=True)
+    print(f"main: fused_self_attention launches {launches} (expected 6 x {N_FRAMES})",
+          flush=True)
+    check(launches == 6 * N_FRAMES, f"kernel launched {launches} times, "
+          f"expected {6 * N_FRAMES}")
+    return spec, tracker, launches, float(np.median(steady))
+
+
+def phase_profile(tracker, n=3):
+    """Device kernel time by kernel over n tracked frames, and the device's
+    busy share of the host's wall time under the profiler (informational)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [synthetic_frame(bg, t) for t in range(n)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for im in frames:
+            tracker.track(im)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    print(f"profile: kernels {busy / n / 1e3:.3f} ms/frame of {wall_us / n / 1e3:.3f} ms "
+          f"wall/frame under the profiler: device busy {100 * busy / wall_us:.1f}%, "
+          f"{sum(r[2] for r in rows) // n} kernel launches/frame", flush=True)
+    for key, us, count in rows[:15]:
+        print(f"profile:   {us / n / 1e3:8.3f} ms/frame {100 * us / max(busy, 1):5.1f}% "
+              f"x{count // n:<4d} {key[:100]}", flush=True)
+
+
+def phase_gate(spec):
+    """bf16 with the kernel on the card vs float32 plain on the CPU, same
+    weights, at the main path's sample size: two train frames and one test
+    frame of 384x576 (24x36 tokens each), so the encoder runs L = 2592."""
+    from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_resnet50
+    from pytracking_tpu_torch.ops import dcf, fused_mha
+
+    K = spec.params.num_tokens
+    net16 = spec.net
+    net32 = tamosnet_resnet50(feature_sz=max(spec.params.train_feature_size),
+                              num_tokens=K, device="cpu")
+    net32.load_state_dict({k: v.cpu() for k, v in net16.state_dict().items()})
+    H, W = spec.params.image_sample_size
+    h, w = H // 16, W // 16
+    rng = np.random.RandomState(2)
+    im = torch.from_numpy(rng.rand(1, 1, 3, H, W).astype(np.float32) * 255)
+    tr = torch.cat([im, torch.roll(im, (6, 4), dims=(3, 4))])
+    te = torch.roll(im, (3, -5), dims=(3, 4))
+    centers = torch.from_numpy(np.stack([rng.rand(K) * (h - 1) - (h - 1) / 2,
+                                         rng.rand(K) * (w - 1) - (w - 1) / 2],
+                                        -1).astype(np.float32))
+    lab = dcf.gauss_2d((h, w), 1.0, centers)[None, None].expand(2, 1, K, h, w)
+    before = fused_mha.fused_self_attention.launches
+    with torch.inference_mode():
+        s16, l16 = net16(tr.cuda(), te.cuda(), lab.cuda())
+        torch.cuda.synchronize()
+        launched = fused_mha.fused_self_attention.launches - before
+        t0 = time.perf_counter()
+        s32, l32 = net32(tr, te, lab)
+        cpu_s = time.perf_counter() - t0
+    s16, l16 = s16.double().cpu().numpy(), l16.double().cpu().numpy()
+    s32, l32 = s32.double().numpy(), l32.double().numpy()
+    check(np.isfinite(s16).all() and np.isfinite(l16).all(), "non-finite bf16 outputs")
+    corr = np.corrcoef(s32.ravel(), s16.ravel())[0, 1]
+    max_rel = abs(s16.max() - s32.max()) / max(abs(s32.max()), 1e-6)
+    disp = []
+    for k in range(K):
+        a = np.unravel_index(np.argmax(s32[0, 0, k]), s32.shape[-2:])
+        b = np.unravel_index(np.argmax(s16[0, 0, k]), s16.shape[-2:])
+        disp.append(int(max(abs(a[0] - b[0]), abs(a[1] - b[1]))))
+    ltrb_err = float(np.median(np.abs(l16 - l32) / (np.abs(l32) + 1e-3)))
+    print(f"gate: {H}x{W} samples, L = {3 * h * w}; kernel launches in the bf16 forward "
+          f"{launched}; CPU f32 forward {cpu_s:.1f} s; score corr {corr:.5f} (> 0.98), "
+          f"max-score rel diff {max_rel:.4f} (< 0.05), argmax disp {disp} (<= 2), median "
+          f"ltrb rel err {ltrb_err:.4f} (< 0.05)", flush=True)
+    check(launched == 6, f"gate forward launched the kernel {launched} times")
+    check(corr > 0.98 and max_rel < 0.05 and max(disp) <= 2 and ltrb_err < 0.05,
+          "bf16 gate failed")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    try:
+        import pytracking_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    phase = "device"
+    try:
+        phase_device()
+        phase = "build"
+        phase_build()
+        phase = "kernels"
+        kernel, main_keep = phase_kernels()
+        phase = "main"
+        spec, tracker, launches, _ = phase_main(main_keep)
+        kernel["launches"] = launches
+        phase = "gate"
+        phase_gate(spec)
+    except Exception as e:  # report which phase failed, then fail the run
+        print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
+        raise
+    try:
+        phase_profile(tracker)
+    except Exception as e:  # the profile is informational, not a phase
+        print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Gaussian labels and 2-D argmax (counterpart of pytracking_tpu/ops/dcf.py:
+`gauss_1d`, `gauss_2d`, `max2d`)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def gauss_1d(sz: int, sigma: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """Sampled 1-D Gaussians on the grid -(sz-1)/2, ..., (sz-1)/2, centred at
+    `center`. sigma and center broadcast: returns (..., sz)."""
+    k = torch.arange(sz, dtype=torch.float32, device=center.device) - (sz - 1) / 2
+    return torch.exp(-1.0 / (2.0 * sigma[..., None] ** 2) * (k - center[..., None]) ** 2)
+
+
+def gauss_2d(sz: Tuple[int, int], sigma, center: torch.Tensor) -> torch.Tensor:
+    """Separable 2-D Gaussian labels. center (N, 2) as (y, x); sigma a scalar,
+    a (2,) pair or (N, 2) per centre. Returns (N, H, W)."""
+    center = torch.as_tensor(center, dtype=torch.float32)
+    if center.dim() == 1:
+        center = center[None]
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=center.device)
+    sigma = torch.broadcast_to(sigma, center.shape)
+    gy = gauss_1d(sz[0], sigma[:, 0], center[:, 0])
+    gx = gauss_1d(sz[1], sigma[:, 1], center[:, 1])
+    return gy[:, :, None] * gx[:, None, :]
+
+
+def max2d(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Max value and integer (row, col) argmax over the trailing two dims,
+    batched over leading dims. Ties go to the first index in row-major order."""
+    h, w = a.shape[-2], a.shape[-1]
+    flat = a.reshape(a.shape[:-2] + (h * w,))
+    max_val, idx = torch.max(flat, dim=-1)
+    return max_val, torch.stack([idx // w, idx % w], dim=-1)

@@ -1,0 +1,48 @@
+"""Image patch extraction (counterpart of pytracking_tpu/ops/patch.py:
+`_resample_weights` and `sample_patch` in replicate mode).
+
+The crop and resize is separable: two dense weight-matrix products
+P = W_y · im · W_xᵀ, each row a normalised triangle filter whose width grows
+with the downscale factor (anti-aliasing), out-of-range mass clamped onto
+the border pixels. The image is (C, H, W) here; the coordinate convention
+is the JAX package's: output pixel j of a patch centred at `pos` with extent
+`sample_sz` samples y(j) = pos_y + ((j + 0.5) / out_h - 0.5) * sample_sz_y.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _resample_weights(src_coords: torch.Tensor, src_size: int,
+                      spread: torch.Tensor) -> torch.Tensor:
+    """(out, src) matrix: row i is a triangle filter of width `spread` (>= 1)
+    centred at src_coords[i] (clamped into the image), normalised to sum 1."""
+    grid = torch.arange(src_size, dtype=torch.float32, device=src_coords.device)
+    c = torch.clamp(src_coords, 0.0, src_size - 1.0)
+    w = torch.clamp(1.0 - torch.abs(c[:, None] - grid[None, :]) / spread, min=0.0)
+    return w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-8)
+
+
+def sample_patch(im: torch.Tensor, pos: torch.Tensor, sample_sz: torch.Tensor,
+                 output_sz: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Patch of extent `sample_sz` (y, x) centred at `pos` (y, x) from
+    im (C, H, W), resampled to output_sz with replicate borders.
+
+    Returns (patch (C, oh, ow) float32, coords (4,) = [tl_y, tl_x, br_y, br_x])."""
+    oh, ow = output_sz
+    H, W = im.shape[-2], im.shape[-1]
+    pos = pos.to(torch.float32)
+    sample_sz = sample_sz.to(torch.float32)
+    dev = im.device
+    j = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) / oh - 0.5
+    i = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) / ow - 0.5
+    ys = pos[0] + j * sample_sz[0]
+    xs = pos[1] + i * sample_sz[1]
+    wy = _resample_weights(ys, H, torch.clamp(sample_sz[0] / oh, min=1.0))  # (oh, H)
+    wx = _resample_weights(xs, W, torch.clamp(sample_sz[1] / ow, min=1.0))  # (ow, W)
+    patch = torch.matmul(torch.matmul(wy, im.to(torch.float32)), wx.T)
+    coords = torch.cat([pos - sample_sz / 2, pos + sample_sz / 2])
+    return patch, coords

@@ -1,0 +1,103 @@
+"""The port stands alone: pytracking_tpu_torch and chip_smoke.py import no
+JAX, no flax and nothing of the JAX package, and the port's entry points
+refuse to run on a CUDA device that is absent instead of falling back to the
+CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pytracking_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _port_modules():
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        if rel.startswith("pytracking_tpu_torch"):
+            yield rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", list(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_imports_in_port_sources(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    modules = list(_port_modules())
+    code = "\n".join([
+        "import sys",
+        f"for name in {FORBIDDEN!r}:",
+        "    sys.modules[name] = None",
+        "import importlib",
+        f"for m in {modules!r}:",
+        "    importlib.import_module(m)",
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('imported', len(" + repr(modules) + "))",
+    ])
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert f"imported {len(modules)}" in res.stdout
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_resnet50
+    from pytracking_tpu_torch.parameter.tamos import tamos_resnet50
+    from pytracking_tpu_torch.trackers.tamos import TaMOsParams, TaMOsTracker
+    from pytracking_tpu_torch.utils.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tamos_resnet50.parameters()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tamos_resnet50.parameters(device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tamosnet_resnet50(num_encoder_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TaMOsTracker(TaMOsParams(), torch.nn.Linear(1, 1))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a card,
+    and also when it stands alone in a directory without the package."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    src = os.path.join(REPO, "chip_smoke.py")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(src).read())
+    for script, cwd in ((src, REPO), (str(lone), str(tmp_path))):
+        res = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode != 0, res.stdout
+        assert '"ok": true' not in res.stdout
