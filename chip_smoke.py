@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every kernel of the port from csrc/ (sm_90a);
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the tracker gives it, with times beside the plain
+              the shapes the tracker gives it and on six key masks (K1
+              skips key tiles with no kept key), with times beside the plain
               version, the PyTorch library call and the card's bound;
   4. main     TaMOs-R50 in bf16 at full width (random weights from a seed):
               `initialize` on a synthetic 480x640 frame with two objects,
@@ -18,7 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
   5. gate     one TaMOsNet forward on the card (bf16, kernel) against the
               same weights in float32 on the CPU (plain), at the main path's
               sample size (L = 2592) and the limits of the JAX package's bf16
-              TaMOs gate.
+              TaMOs gate;
+  6. profile  device kernel time by kernel over 3 tracked frames.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -55,12 +57,16 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_time_ms(fn, iters=20, warmup=3):
+def cuda_time_ms(fn, iters=50, warmup=3):
+    """Device time per call. The card first sleeps ~10 ms, so that the host
+    has queued every timed launch before the card reaches them: a kernel
+    shorter than its host-side launch is timed, not the launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -90,13 +96,35 @@ def phase_build():
     print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def _slot_mask(B, L, entries, device):
-    """Keep mask of the encoder's (2 memory + 1 test frame) sequence with the
-    second memory frame masked in the given batch entries."""
+def _slot_mask(B, L, entries, device, slot=1):
+    """Keep mask of the encoder's (2 memory + 1 test frame) sequence with one
+    memory slot masked in the given batch entries."""
     keep = torch.ones(B, L, dtype=torch.bool)
     frame = L // 3
-    keep[list(entries), frame:2 * frame] = False
+    keep[list(entries), slot * frame:(slot + 1) * frame] = False
     return keep.to(device)
+
+
+def _skipped_tiles(keep, tile=64):
+    """Key tiles of 64 with no kept key, summed over the batch entries: the
+    tiles K1 neither loads nor computes."""
+    B, L = keep.shape
+    n = -(-L // tile)
+    padded = torch.zeros(B, n * tile, dtype=torch.bool, device=keep.device)
+    padded[:, :L] = keep
+    return int((~padded.view(B, n, tile).any(-1)).sum()), B * n
+
+
+def _bound(keep, shape, element_size):
+    """Least time for the work the function needs on this mask: each query
+    against the keys its batch entry keeps (exps, QK^T and PV products)
+    and each input and output byte once."""
+    B, L, H, D = shape
+    kept = int(keep.sum().item()) if keep is not None else B * L
+    exps = float(H * L * kept)
+    times = {"bytes": (4.0 * B * L * H * D * element_size + B * L) / PEAK_HBM_BYTES,
+             "matmul": 4.0 * D * exps / PEAK_BF16_FLOPS, "exp": exps / PEAK_SFU_EXP}
+    return max(times.values()) * 1e3, times, kept
 
 
 def phase_kernels():
@@ -106,48 +134,65 @@ def phase_kernels():
     from pytracking_tpu_torch.utils.device import ieee_float32
 
     fsa, ref = fused_mha.fused_self_attention, fused_mha.fused_self_attention_reference
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator().manual_seed(0)
 
     def qkv(shape, dtype):
         return [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3)]
 
+    def check_bf16(what, q, k, v, keep, sm_scale=None):
+        out = fsa(q, k, v, keep, sm_scale)
+        torch.cuda.synchronize()
+        e = (out.float() - ref(q, k, v, keep, sm_scale).float()).abs().max().item()
+        e32 = (out.float() - ref(q.float(), k.float(), v.float(), keep, sm_scale)
+               ).abs().max().item()
+        print(f"kernel bf16 {tuple(q.shape)}, {what}: max|kernel-plain| {e:.3e} "
+              f"(<= 2e-2), max|kernel-f32 oracle| {e32:.3e} (<= 0.05)", flush=True)
+        check(e <= 2e-2 and e32 <= 0.05, f"bf16 kernel disagrees with plain ({what})")
+        return out, e
+
     B, L, H, D = TAMOS_SHAPE
     q, k, v = qkv(TAMOS_SHAPE, torch.bfloat16)
     # the main path's mask: with one frame stored, the cls (0) and bbreg (1)
-    # copies both mask the empty memory slot. The second mask is the one of a
-    # full memory whose second frame is not a ground-truth frame (bbreg only).
+    # copies both mask the empty memory slot
     main_keep = _slot_mask(B, L, (0, 1), "cuda")
+    random_keep = (torch.rand(B, L, generator=g) > 0.3).cuda()   # no tile skippable
+    one_empty = torch.ones(B, L, dtype=torch.bool, device="cuda")
+    one_empty[0] = False
     masks = {"main path (slot 1 masked in both entries)": main_keep,
-             "slot 1 masked in entry 1": _slot_mask(B, L, (1,), "cuda")}
+             "slot 1 masked in entry 1": _slot_mask(B, L, (1,), "cuda"),
+             "slot 0 masked in entry 0 (first tiles skipped)": _slot_mask(B, L, (0,), "cuda",
+                                                                          slot=0),
+             "random, 30% masked": random_keep,
+             "no mask": None,
+             "entry 0 fully masked": one_empty}
     with ieee_float32():     # the float32 references in IEEE float32, not TF32
         err_plain = 0.0
         for what, keep in masks.items():
-            out = fsa(q, k, v, keep)
-            torch.cuda.synchronize()
-            e = (out.float() - ref(q, k, v, keep).float()).abs().max().item()
-            e32 = (out.float() - ref(q.float(), k.float(), v.float(), keep)).abs().max().item()
-            print(f"kernel bf16 {TAMOS_SHAPE}, {what}: max|kernel-plain| {e:.3e} "
-                  f"(<= 2e-2), max|kernel-f32 oracle| {e32:.3e} (<= 0.05)", flush=True)
-            check(e <= 2e-2 and e32 <= 0.05, "bf16 kernel disagrees with plain")
+            out, e = check_bf16(what, q, k, v, keep)
             err_plain = max(err_plain, e)
+        em = (out[0].float() - v[0].float().mean(0)).abs().max().item()
+        print(f"fully masked entry: finite {bool(torch.isfinite(out).all())}, "
+              f"max|out - mean(V)| {em:.3e} (<= 2e-2)", flush=True)
+        check(bool(torch.isfinite(out).all()) and em <= 2e-2,
+              "fully masked entry is not the mean of V")
 
-        # float32, ragged L
+        # other scales: negative, and 0 (every kept key one logit)
+        for sm_scale in (-D ** -0.5, 0.0):
+            err_plain = max(err_plain, check_bf16(f"main mask, sm_scale {sm_scale:.4f}", q, k,
+                                                  v, main_keep, sm_scale)[1])
+
+        # ragged L, bf16 and float32
+        q3, k3, v3 = qkv((2, 300, 8, 32), torch.bfloat16)
+        keep3 = _slot_mask(2, 300, (1,), "cuda")
+        err_plain = max(err_plain, check_bf16("ragged L", q3, k3, v3, keep3)[1])
         q32, k32, v32 = qkv((2, 300, 8, 32), torch.float32)
-        keep32 = _slot_mask(2, 300, (1,), "cuda")
-        out32 = fsa(q32, k32, v32, keep32)
-        ref32 = ref(q32, k32, v32, keep32)
+        out32 = fsa(q32, k32, v32, keep3)
+        ref32 = ref(q32, k32, v32, keep3)
         ok32 = torch.allclose(out32, ref32, rtol=1e-5, atol=2e-5)
         print(f"kernel f32 (2, 300, 8, 32): max|kernel-plain| "
               f"{(out32 - ref32).abs().max().item():.3e} (rtol 1e-5, atol 2e-5)", flush=True)
         check(ok32, "f32 kernel disagrees with plain")
-
-        # a fully masked batch entry stays finite (mean of V)
-        full = torch.stack([torch.zeros(L, dtype=torch.bool), torch.ones(L, dtype=torch.bool)])
-        outm = fsa(q, k, v, full.cuda())
-        check(bool(torch.isfinite(outm).all()), "fully masked entry is not finite")
-        em = (outm[0].float() - v[0].float().mean(0)).abs().max().item()
-        print(f"fully masked entry: finite, max|out - mean(V)| {em:.3e}", flush=True)
-        check(em <= 2e-2, "fully masked entry is not the mean of V")
 
         try:
             fsa(q[:, :256], k, v)
@@ -155,27 +200,45 @@ def phase_kernels():
         except ValueError:
             print("cross-attention raises ValueError", flush=True)
 
-        # times and bound at the TaMOs shape on the main path's mask
-        keep = main_keep
-        kernel_ms = cuda_time_ms(lambda: fsa(q, k, v, keep))
-        plain_ms = cuda_time_ms(lambda: ref(q, k, v, keep))
+        # times and bounds at the TaMOs shape: the main path's mask (the
+        # headline) and the random mask (the same function with no tile to skip)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_mask = keep[:, None, None, :]
-        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask))
-    # the work the function needs: every query against the keys its entry keeps
-    kept = int(keep.sum().item())
-    exps = float(H * L * kept)
-    flops = 4.0 * D * exps
-    nbytes = 4.0 * B * L * H * D * q.element_size() + B * L
-    times = {"bytes": nbytes / PEAK_HBM_BYTES, "matmul": flops / PEAK_BF16_FLOPS,
-             "exp": exps / PEAK_SFU_EXP}
-    bound_ms = max(times.values()) * 1e3
-    print(f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-          f"bound_us {bound_ms * 1e3:.2f} over {kept} kept keys of {B * L} (bytes "
-          f"{times['bytes'] * 1e6:.2f} us, matmul {times['matmul'] * 1e6:.2f} us, exp "
-          f"{times['exp'] * 1e6:.2f} us); {flops / kernel_ms / 1e9:.1f} TFLOP/s needed, "
-          f"kernel at {bound_ms / kernel_ms * 100:.1f}% of its bound", flush=True)
+        timed = {}
+        for what, keep in (("main", main_keep), ("random", random_keep)):
+            sdpa_mask = keep[:, None, None, :]
+            kernel_ms = cuda_time_ms(lambda: fsa(q, k, v, keep))
+            library_ms = cuda_time_ms(lambda: sdpa(qt, kt, vt, attn_mask=sdpa_mask))
+            plain_ms = cuda_time_ms(lambda: ref(q, k, v, keep), iters=20)
+            bound_ms, times, kept = _bound(keep, TAMOS_SHAPE, q.element_size())
+            skipped, tiles = _skipped_tiles(keep)
+            print(f"{what} mask: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms {library_ms:.4f} bound_us {bound_ms * 1e3:.2f} over {kept} kept "
+                  f"keys of {B * L} (bytes {times['bytes'] * 1e6:.2f} us, matmul "
+                  f"{times['matmul'] * 1e6:.2f} us, exp {times['exp'] * 1e6:.2f} us); kernel "
+                  f"at {bound_ms / kernel_ms * 100:.1f}% of its bound, "
+                  f"{library_ms / kernel_ms:.2f}x SDPA's speed; key tiles skipped "
+                  f"{skipped} of {tiles}", flush=True)
+            timed[what] = (kernel_ms, plain_ms, library_ms, bound_ms, times)
+
+        # host time of one call (bf16 encodes three TMA maps per call; float32
+        # encodes none), at a size where the card keeps up with the host:
+        # the least of 5 alternating runs of 200 calls each
+        qs, ks, vs = qkv((1, 256, 1, 32), torch.bfloat16)
+        qf, kf, vf = (x.float() for x in (qs, ks, vs))
+        host_us = {"bf16": [], "f32": []}
+        for _ in range(5):
+            for name, args in (("bf16", (qs, ks, vs)), ("f32", (qf, kf, vf))):
+                fsa(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fsa(*args)
+                host_us[name].append((time.perf_counter() - t0) / 200 * 1e6)
+                torch.cuda.synchronize()
+        print(f"host time per call (least of 5 x 200): bf16 {min(host_us['bf16']):.2f} us, "
+              f"f32 {min(host_us['f32']):.2f} us; the difference is about the three "
+              f"tensor-map encodes", flush=True)
+    kernel_ms, plain_ms, library_ms, bound_ms, times = timed["main"]
     record = {"name": "fused_self_attention", "route": "cuda",
               "source": "pytracking_tpu_torch/csrc/fused_mha.cu",
               "replaces": "pytracking_tpu/ops/pallas_mha.py:82",
@@ -259,7 +322,8 @@ def phase_main(main_keep):
 
 def phase_profile(tracker, n=3):
     """Device kernel time by kernel over n tracked frames, and the device's
-    busy share of the host's wall time under the profiler (informational)."""
+    busy share of the host's wall time under the profiler. Fails if the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -273,6 +337,7 @@ def phase_profile(tracker, n=3):
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
+    check(busy > 0, "the profiler recorded no device kernel time")
     rows.sort(key=lambda r: -r[1])
     print(f"profile: kernels {busy / n / 1e3:.3f} ms/frame of {wall_us / n / 1e3:.3f} ms "
           f"wall/frame under the profiler: device busy {100 * busy / wall_us:.1f}%, "
@@ -355,13 +420,11 @@ def main():
         kernel["launches"] = launches
         phase = "gate"
         phase_gate(spec)
+        phase = "profile"
+        phase_profile(tracker)
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise
-    try:
-        phase_profile(tracker)
-    except Exception as e:  # the profile is informational, not a phase
-        print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -4,9 +4,11 @@ TPU kernel in `pytracking_tpu/ops/pallas_mha.py`.
 `fused_self_attention` takes (B, L, H, D) tensors, as the JAX function does.
 On a CUDA tensor it launches the hand-written kernel of
 `csrc/fused_mha.cu` (built with nvcc for sm_90a at first use, bound with
-ctypes); on a CPU tensor it computes `fused_self_attention_reference`, the
-plain PyTorch version of the same arithmetic. There is no fallback between
-the two: a CUDA tensor the kernel does not take raises.
+ctypes; bf16 runs a wgmma/TMA kernel that skips key tiles with no kept key,
+float32 a scalar one); on a CPU tensor it computes
+`fused_self_attention_reference`, the plain PyTorch version of the same
+arithmetic. There is no fallback between the two: a CUDA tensor the kernel
+does not take raises.
 
 Numerics (both versions): logits accumulate in float32 and are scaled after
 QK^T, masked keys get an additive -1e30, the softmax is float32, the
@@ -31,29 +33,43 @@ import torch
 
 _MASK_BIAS = -1e30
 HEAD_DIMS = (32,)        # the TaMOs encoder's; the kernel is built for these
+MAX_LEN_BF16 = 65536     # the bf16 kernel keeps a per-key-tile table in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_mha.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+SOURCE = os.path.join(CSRC_DIR, "fused_mha.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC")
 
 
 def nvcc_command(source: str, output: str, verbose: bool = False) -> list:
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", output, source]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    return cmd
+    report = ["-Xptxas", "-v"] if verbose else []
+    return [nvcc, *report, *NVCC_FLAGS, "-o", output, source]
+
+
+def source_digest(csrc_dir: str = CSRC_DIR) -> str:
+    """Hash of every file under `csrc_dir` (relative names and contents, so a
+    changed or added header counts) and of NVCC_FLAGS: the build's cache key."""
+    h = hashlib.sha256()
+    for root, dirs, files in os.walk(csrc_dir):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, csrc_dir).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/fused_mha.cu into _build/ (once per source content) and
+    """Compile csrc/fused_mha.cu into _build/ (once per source_digest) and
     return the library path. With `verbose`, ptxas' register and shared
     memory report is printed."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libfused_mha_{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"libfused_mha_{source_digest()}.so")
     if os.path.isfile(lib) and not verbose:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -135,6 +151,8 @@ def fused_self_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
         raise ValueError(f"kernel takes head dims {HEAD_DIMS}, got {D}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit 65535")
+    if query.dtype == torch.bfloat16 and L > MAX_LEN_BF16:
+        raise ValueError(f"the bf16 kernel takes L <= {MAX_LEN_BF16}, got {L}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors[:3]):
         raise ValueError("query, key and value must be contiguous and 16-byte aligned")
     keep = None if key_keep_mask is None else key_keep_mask.contiguous()
