@@ -20,13 +20,27 @@ Phases (any failure exits non-zero and prints no result line):
               same weights in float32 on the CPU (plain), at the main path's
               sample size (L = 2592) and the limits of the JAX package's bf16
               TaMOs gate;
-  6. profile  device kernel time by kernel over 3 tracked frames.
+  6. profile  device kernel time by kernel over 3 tracked frames;
+  7. dimp     DiMP-50 in float32 at full width (random weights from a seed,
+              not-found threshold DIMP_NOT_FOUND_THRESHOLD; no Pallas kernel
+              on this path: cuDNN convolutions, cuBLAS matmuls, autograd):
+              `initialize` on the synthetic 480x640
+              frame, then `track` over 110 frames of a moving target; finite
+              outputs, frame times (all, and the periodic-refit frames),
+              the flag histogram and the host synchronisations per frame;
+  8. dimp_gate  the same weights, seed and draws through `initialize` + 10
+              frames on the card and on the CPU, both IEEE float32, each
+              CPU frame started from the card's state: equal flags and
+              replace indices, boxes within DIMP_GATE_PX;
+  9. dimp_profile  device kernel time by kernel over 3 DiMP frames.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
 is {"ok": true, "device": {...}}.
 """
 
+import collections
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,6 +60,19 @@ TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 te
                                     # of 24x36 tokens), heads, head dim
 N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
 WARMUP_FRAMES = 5
+DIMP_GATE_FRAMES = 10
+# DiMP-50's not-found threshold is 0.25, for a trained net whose score peaks
+# near 1. The seeded random net's peaks are 0.04-0.25 on this sequence
+# (scripts/dimp_check.py scores): at 0.25 every frame is not_found and neither the
+# memory update nor a classifier refit ever runs. At 0.02 the frames are
+# normal, hard negative and uncertain, and every classifier branch runs.
+DIMP_NOT_FOUND_THRESHOLD = 0.02
+# card against CPU, both IEEE float32: cuDNN's and the CPU's convolutions sum
+# in other orders (~1e-6 relative per layer through ResNet-50); five IoU-Net
+# ascent steps scale the box gradient by the box size (~100 px), so
+# 1e-4 relative there is 0.01 px; 0.05 px leaves 5x room, a wrong op moves
+# boxes by pixels
+DIMP_GATE_PX = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -320,15 +347,17 @@ def phase_main(main_keep):
     return spec, tracker, launches, float(np.median(steady))
 
 
-def phase_profile(tracker, n=3):
-    """Device kernel time by kernel over n tracked frames, and the device's
-    busy share of the host's wall time under the profiler. Fails if the
-    profiler saw no device time."""
+def phase_profile(tracker, frames=None, tag="profile"):
+    """Device kernel time by kernel over the tracked frames (3 of a new
+    sequence by default), and the device's busy share of the host's wall
+    time under the profiler. Fails if the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    frames = [synthetic_frame(bg, t) for t in range(n)]
+    if frames is None:
+        bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+        frames = [synthetic_frame(bg, t) for t in range(3)]
+    n = len(frames)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for im in frames:
@@ -339,12 +368,12 @@ def phase_profile(tracker, n=3):
     busy = sum(r[1] for r in rows)
     check(busy > 0, "the profiler recorded no device kernel time")
     rows.sort(key=lambda r: -r[1])
-    print(f"profile: kernels {busy / n / 1e3:.3f} ms/frame of {wall_us / n / 1e3:.3f} ms "
+    print(f"{tag}: kernels {busy / n / 1e3:.3f} ms/frame of {wall_us / n / 1e3:.3f} ms "
           f"wall/frame under the profiler: device busy {100 * busy / wall_us:.1f}%, "
           f"{sum(r[2] for r in rows) // n} kernel launches/frame", flush=True)
     for key, us, count in rows[:15]:
-        print(f"profile:   {us / n / 1e3:8.3f} ms/frame {100 * us / max(busy, 1):5.1f}% "
-              f"x{count // n:<4d} {key[:100]}", flush=True)
+        print(f"{tag}:   {us / n / 1e3:8.3f} ms/frame {100 * us / max(busy, 1):5.1f}% "
+              f"x{count / n:<6.1f} {key[:100]}", flush=True)
 
 
 def phase_gate(spec):
@@ -397,6 +426,163 @@ def phase_gate(spec):
           "bf16 gate failed")
 
 
+def dimp_frame(rng_bg, t, H=480, W=640):
+    """A 60x80 red target moving 3 px right and 2 px down per frame."""
+    im = rng_bg.copy()
+    y, x = 150 + 2 * t, 200 + 3 * t
+    im[y:y + 80, x:x + 60] = [220, 60, 60]
+    return im
+
+
+DIMP_INIT = {"init_bbox": [200, 150, 60, 80]}
+
+
+def _count_syncs(fn):
+    """Calls fn() with CUDA's sync debug mode on; returns (result, the
+    warnings of the host synchronisations it made)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def phase_dimp():
+    """DiMP-50 at full width on the card: initialize + 110 tracked frames."""
+    from pytracking_tpu_torch.parameter.dimp import dimp50
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker
+
+    t0 = time.perf_counter()
+    spec = dimp50.parameters(device="cuda", seed=0)
+    spec = dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, target_not_found_threshold=DIMP_NOT_FOUND_THRESHOLD))
+    tracker = DiMPTracker(spec.params, spec.net, device="cuda")
+    torch.cuda.synchronize()
+    p = spec.params
+    print(f"dimp: DiMP-50 f32 built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f} M parameters; "
+          f"sample {p.image_sample_size}, memory {p.sample_memory_size}, "
+          f"{p.num_init_random_boxes}+1 boxes x {p.box_refinement_iter} steps, not-found "
+          f"threshold {p.target_not_found_threshold}", flush=True)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(N_FRAMES + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.initialize(frames[0], DIMP_INIT)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    frame_ms, outs, iters = [], [], []
+    for im in frames[1:]:
+        t0 = time.perf_counter()
+        out = tracker.track(im)          # reads back box, score and flag: ends in a sync
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        iters.append(tracker._classifier_iterations(FLAG_NAMES.index(out["flag"]),
+                                                    tracker.state.frame_num))
+    torch.cuda.synchronize()
+    for out in outs:
+        check(len(out["target_bbox"]) == 4 and all(math.isfinite(v) for v in out["target_bbox"])
+              and math.isfinite(out["max_score"]), f"bad DiMP output {out}")
+    st = tracker.state
+    for name in ("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes", "iou_mod3",
+                 "iou_mod4"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"non-finite DiMP state {name}")
+
+    steady = np.asarray(frame_ms[WARMUP_FRAMES:])
+    # every train_skipping-th frame is a periodic refit when its flag allows
+    # an update (frame_num - 1 = i + 1); the call that enqueues the refit
+    # returns before it runs, the next frame waits for it at its readback
+    refit = [i for i in range(len(iters)) if (i + 1) % p.train_skipping == 0]
+    after = [frame_ms[i + 1] for i in refit if i + 1 < len(frame_ms)]
+    hist = {name: sum(o["flag"] == name for o in outs) for name in FLAG_NAMES}
+    print(f"dimp: init {init_ms:.1f} ms; track: {len(steady)} frames after {WARMUP_FRAMES} "
+          f"warm-up, median {np.median(steady):.3f} ms/frame, p90 "
+          f"{np.percentile(steady, 90):.3f}, min {steady.min():.3f}, max {steady.max():.3f}; "
+          f"first frame {frame_ms[0]:.1f} ms", flush=True)
+    print(f"dimp: periodic-refit frames {[i + 1 for i in refit]} (optimiser iterations "
+          f"{[iters[i] for i in refit]}): {[round(frame_ms[i], 3) for i in refit]} ms, the "
+          f"frames after them "
+          f"{[round(x, 3) for x in after]} ms; optimiser iterations per frame "
+          f"{dict(sorted(collections.Counter(iters).items()))}", flush=True)
+    print(f"dimp: flags {hist}; last box {outs[-1]['target_bbox']} score "
+          f"{outs[-1]['max_score']:.4f}; memory holds {int(st.num_stored)} samples", flush=True)
+
+    extra = [dimp_frame(bg, t) for t in range(N_FRAMES + 1, N_FRAMES + 11)]
+    syncs = [_count_syncs(lambda im=im: tracker.track(im))[1] for im in extra]
+    print(f"dimp: host synchronisations per frame over {len(extra)} more frames: "
+          f"{[len(x) for x in syncs]} (target 1: the readback)", flush=True)
+    for msg in sorted(set(m for x in syncs if len(x) > 1 for m in x)):
+        print(f"dimp:   sync: {msg[:300]}", flush=True)
+    return spec, tracker
+
+
+def _state_to(state, device):
+    """A copy of a DiMP tracker state on `device`."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(device, copy=True) for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def phase_dimp_gate(spec):
+    """Card against CPU, IEEE float32 on both, the card's draws replayed on
+    the CPU tracker. Each frame starts the CPU tracker from the card's state
+    (copied), so the gate holds every step to DIMP_GATE_PX and equal flags
+    and replace indices: run free, the two drift apart through the random
+    net's feedback loop (`scripts/dimp_check.py gate`: 1e-4 px after one
+    frame, 15 px after ten), which would measure the loop, not the port."""
+    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
+    from pytracking_tpu_torch.trackers.dimp import DiMPTracker
+
+    net_cpu = dimpnet50(device="cpu")
+    net_cpu.load_state_dict({k: v.cpu() for k, v in spec.net.state_dict().items()})
+    gpu = DiMPTracker(spec.params, spec.net, device="cuda")
+    cpu = DiMPTracker(spec.params, net_cpu, device="cpu")
+    draws = []
+
+    def recording(fn):
+        def draw(*args):
+            out = fn(*args)
+            draws.append(out.cpu())
+            return out
+        return draw
+
+    gpu._uniform, gpu._keep_mask = recording(gpu._uniform), recording(gpu._keep_mask)
+    cpu._uniform = cpu._keep_mask = lambda *args: draws.pop(0)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(DIMP_GATE_FRAMES + 1)]
+    t0 = time.perf_counter()
+    for tr in (gpu, cpu):
+        tr.initialize(frames[0], DIMP_INIT)
+    filt = gpu.state.target_filter.cpu()
+    init_rel = float((filt - cpu.state.target_filter).abs().max() / filt.abs().max())
+    px, flags, filt_rel = [], [], []
+    for im in frames[1:]:
+        cpu.state = _state_to(gpu.state, "cpu")
+        og = gpu.track(im)
+        oc = cpu.track(im)
+        check(og["flag"] == oc["flag"], f"dimp_gate: flags differ {og['flag']} {oc['flag']}")
+        for name in ("prev_ind", "num_stored"):
+            a, b = int(getattr(gpu.state, name)), int(getattr(cpu.state, name))
+            check(a == b, f"dimp_gate: {name} differs: card {a}, CPU {b}")
+        px.append(float(np.abs(np.subtract(og["target_bbox"], oc["target_bbox"])).max()))
+        flags.append(og["flag"])
+        filt = gpu.state.target_filter.cpu()
+        filt_rel.append(float((filt - cpu.state.target_filter).abs().max() / filt.abs().max()))
+    check(not draws, "dimp_gate: the CPU tracker did not consume every draw of the card's")
+    print(f"dimp_gate: init + {DIMP_GATE_FRAMES} frames card vs CPU in "
+          f"{time.perf_counter() - t0:.1f} s; init filter max rel diff {init_rel:.2e}; flags "
+          f"equal {flags}; replace indices equal; box difference per frame "
+          f"{[f'{x:.1e}' for x in px]} px (<= {DIMP_GATE_PX}); filter max rel diff after each "
+          f"frame {[f'{x:.1e}' for x in filt_rel]}", flush=True)
+    check(max(px) <= DIMP_GATE_PX, f"dimp_gate: boxes differ by {max(px)} px")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -422,6 +608,15 @@ def main():
         phase_gate(spec)
         phase = "profile"
         phase_profile(tracker)
+        phase = "dimp"
+        dimp_spec, dimp_tracker = phase_dimp()
+        phase = "dimp_gate"
+        phase_dimp_gate(dimp_spec)
+        phase = "dimp_profile"
+        bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+        t_next = dimp_tracker.state.frame_num
+        phase_profile(dimp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+                      tag="dimp_profile")
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

@@ -1,11 +1,25 @@
 """Basic building blocks (counterpart of pytracking_tpu/models/layers/blocks.py:
-`instance_l2_norm`; plus the inference-time BatchNorm the JAX package gets
-from flax)."""
+`ConvBlock`, `LinearBlock`, `instance_l2_norm`; plus the inference-time
+BatchNorm the JAX package gets from flax, and flax's truncated-normal
+initialiser)."""
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def trunc_normal_fan_in(weight: torch.Tensor, scale: float,
+                        generator: torch.Generator) -> None:
+    """flax variance_scaling(scale, 'fan_in', 'truncated_normal') in place:
+    scale 1 is lecun-normal, scale 2 he-normal. The fan-in of an (out, in,
+    ...) weight is the size of one output's slice."""
+    std = math.sqrt(scale / weight[0].numel()) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def instance_l2_norm(x: torch.Tensor, scale: float = 1.0, eps: float = 1e-5) -> torch.Tensor:
@@ -38,3 +52,32 @@ class BatchNorm(nn.Module):
         shape = [1] * x.dim()
         shape[self.dim] = -1
         return (x.float() * mul.view(shape) + shift.view(shape)).to(x.dtype)
+
+
+class ConvBlock(nn.Module):
+    """conv -> BatchNorm -> ReLU. Submodules carry flax's automatic names
+    (`Conv_0`, `BatchNorm_0`) so the weight converter maps them one to one."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 padding: Optional[int] = None):
+        super().__init__()
+        pad = kernel_size // 2 if padding is None else padding
+        self.Conv_0 = nn.Conv2d(in_channels, out_channels, kernel_size, padding=pad)
+        self.BatchNorm_0 = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class LinearBlock(nn.Module):
+    """flatten -> linear -> BatchNorm -> ReLU on (N, C, h, w) inputs. The
+    flatten is in (c, h, w) order; the JAX block flattens NHWC in (h, w, c)
+    order, and the converter permutes the Dense kernel's rows to match."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, out_features)
+        self.BatchNorm_0 = BatchNorm(out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.BatchNorm_0(self.Dense_0(x.flatten(1))))

@@ -17,7 +17,7 @@ from torch import nn
 
 from pytracking_tpu_torch.models.backbones import resnet as backbones
 from pytracking_tpu_torch.models.classifier.features import ResidualBottleneck
-from pytracking_tpu_torch.models.layers.blocks import BatchNorm
+from pytracking_tpu_torch.models.layers.blocks import BatchNorm, trunc_normal_fan_in
 from pytracking_tpu_torch.models.transformer.got_filter_predictor import \
     GOTFilterPredictor
 from pytracking_tpu_torch.models.transformer.heads import (DenseBoxRegressor,
@@ -150,13 +150,6 @@ class TaMOsNet(nn.Module):
         return self.classify(pyr["feat2"], filters), self.bbreg(pyr["feat2"], filters)
 
 
-def _trunc_normal_fan_in(weight: torch.Tensor, scale: float, fan_in: int,
-                         generator: torch.Generator) -> None:
-    """flax variance_scaling(scale, 'fan_in', 'truncated_normal')."""
-    std = math.sqrt(scale / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
 @torch.no_grad()
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from `generator` with the JAX package's
@@ -165,9 +158,8 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     scales and identity BatchNorm statistics."""
     for name, m in net.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            scale = 2.0 if name.endswith("final_conv") else 1.0
-            _trunc_normal_fan_in(m.weight, scale, fan_in, generator)
+            trunc_normal_fan_in(m.weight, 2.0 if name.endswith("final_conv") else 1.0,
+                                generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, BatchNorm)):

@@ -1,11 +1,24 @@
-"""Gaussian labels and 2-D argmax (counterpart of pytracking_tpu/ops/dcf.py:
-`gauss_1d`, `gauss_2d`, `max2d`)."""
+"""Hann windows, Gaussian labels and 2-D argmax (counterpart of
+pytracking_tpu/ops/dcf.py: `hann1d`, `hann2d`, `gauss_1d`, `gauss_2d`,
+`max2d`)."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+
+def hann1d(sz: int, device=None) -> torch.Tensor:
+    """1-D Hann window of sz points, zero just outside both ends."""
+    n = torch.arange(sz, dtype=torch.float32, device=device)
+    return 0.5 * (1.0 - torch.cos(2.0 * math.pi * (n + 1) / (sz + 1)))
+
+
+def hann2d(sz: Tuple[int, int], device=None) -> torch.Tensor:
+    """Outer-product 2-D Hann window, (H, W)."""
+    return hann1d(sz[0], device=device)[:, None] * hann1d(sz[1], device=device)[None, :]
 
 
 def gauss_1d(sz: int, sigma: torch.Tensor, center: torch.Tensor) -> torch.Tensor:

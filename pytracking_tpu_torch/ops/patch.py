@@ -1,5 +1,6 @@
 """Image patch extraction (counterpart of pytracking_tpu/ops/patch.py:
-`_resample_weights` and `sample_patch` in replicate mode).
+`bilinear_sample`, `_resample_weights` and `sample_patch` in replicate
+mode).
 
 The crop and resize is separable: two dense weight-matrix products
 P = W_y · im · W_xᵀ, each row a normalised triangle filter whose width grows
@@ -14,6 +15,27 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def bilinear_sample(im: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                    replicate: bool = True) -> torch.Tensor:
+    """Bilinear lookup of im (C, H, W) at continuous coordinates ys, xs (one
+    shape, pixel centres at integers). Outside the image the border pixel is
+    repeated (replicate) or zero is read. Returns (C,) + ys.shape."""
+    H, W = im.shape[-2], im.shape[-1]
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    dy = ys - y0
+    dx = xs - x0
+
+    def tap(iy, ix):
+        v = im[:, torch.clamp(iy, 0, H - 1).long(), torch.clamp(ix, 0, W - 1).long()]
+        if not replicate:
+            v = torch.where((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W), v, 0.0)
+        return v
+
+    return ((1 - dy) * (1 - dx) * tap(y0, x0) + (1 - dy) * dx * tap(y0, x0 + 1)
+            + dy * (1 - dx) * tap(y0 + 1, x0) + dy * dx * tap(y0 + 1, x0 + 1))
 
 
 def _resample_weights(src_coords: torch.Tensor, src_size: int,

@@ -1,0 +1,496 @@
+"""DiMP tracker: meta-learned discriminative filter with IoU-Net box
+refinement (counterpart of pytracking_tpu/trackers/dimp.py `DiMPParams`,
+`DiMPTracker`, with the "default" box-refinement space).
+
+The per-frame state is fixed-shape tensors on the tracker's device: the
+target geometry, the filter, a ring buffer of `sample_memory_size`
+classification features with a weight per slot (weight 0 = empty), the
+IoU-Net modulation vectors and the last flag. Localisation, the four flags
+(0 normal, 1 not_found, 2 hard_negative, 3 uncertain), box refinement and
+the memory update run on the device. `track` reads back the box, score and
+flag in one copy, the frame's one synchronisation; the flag and the frame
+count then choose the classifier update on the host (no update, the
+hard-negative or the periodic iteration count), and the optimiser is
+enqueued after the readback, ahead of the next frame's classification.
+
+The IoU-Net box gradient is `torch.autograd.grad` of the summed IoU in the
+proposal boxes, inside `torch.no_grad()` with grad enabled for that call;
+the net's parameters are frozen, so no parameter gradient is built.
+
+Random draws (the box jitter, the dropout mask) come from a
+`torch.Generator` on the tracker's device seeded at `initialize`, through
+`_uniform` and `_keep_mask`; the augmentation shifts come from
+`np.random.RandomState(seed)`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from pytracking_tpu_torch.ops import augmentation as aug
+from pytracking_tpu_torch.ops import dcf
+from pytracking_tpu_torch.ops.patch import sample_patch
+from pytracking_tpu_torch.trackers.base import BaseTracker, masked_slot_set, take
+from pytracking_tpu_torch.utils.device import ieee_float32
+
+FLAG_NORMAL, FLAG_NOT_FOUND, FLAG_HARD_NEG, FLAG_UNCERTAIN = 0, 1, 2, 3
+FLAG_NAMES = ["normal", "not_found", "hard_negative", "uncertain"]
+
+
+@dataclass(frozen=True)
+class DiMPParams:
+    """Static tracker configuration; the defaults are DiMP-50's."""
+    image_sample_size: int = 18 * 16
+    search_area_scale: float = 5.0
+    feature_stride: int = 16
+    kernel_size: int = 4
+    # learning
+    sample_memory_size: int = 50
+    learning_rate: float = 0.01
+    init_samples_minimum_weight: float = 0.25
+    train_skipping: int = 20
+    net_opt_iter: int = 10
+    net_opt_update_iter: int = 2
+    net_opt_hn_iter: int = 1
+    # detection
+    window_output: bool = False
+    # init augmentation
+    augmentation: tuple = (("fliplr", True),
+                           ("rotate", (10, -10, 45, -45)),
+                           ("blur", ((3, 1), (1, 3), (2, 2))),
+                           ("relativeshift", ((0.6, 0.6), (-0.6, 0.6), (0.6, -0.6),
+                                              (-0.6, -0.6))),
+                           ("dropout", (2, 0.2)))
+    augmentation_expansion_factor: float = 2.0
+    random_shift_factor: float = 1 / 3
+    # advanced localisation
+    target_not_found_threshold: float = 0.25
+    distractor_threshold: float = 0.8
+    hard_negative_threshold: float = 0.5
+    target_neighborhood_scale: float = 2.2
+    displacement_scale: float = 0.8
+    hard_negative_learning_rate: float = 0.02
+    perform_hn_without_windowing: bool = False
+    target_inside_ratio: float = 0.2
+    # IoU-Net
+    iounet_k: int = 3
+    num_init_random_boxes: int = 9
+    box_jitter_pos: float = 0.1
+    box_jitter_sz: float = 0.5
+    maximal_aspect_ratio: float = 6.0
+    box_refinement_iter: int = 5
+    box_refinement_step_length: float = 1.0
+    box_refinement_step_decay: float = 1.0
+
+
+@dataclass
+class DiMPState:
+    pos: torch.Tensor              # (2,) (y, x)
+    target_sz: torch.Tensor        # (2,) (h, w)
+    target_scale: torch.Tensor     # ()
+    base_target_sz: torch.Tensor   # (2,)
+    image_sz: torch.Tensor         # (2,) (H, W)
+    min_scale: torch.Tensor        # ()
+    max_scale: torch.Tensor        # ()
+    target_filter: torch.Tensor    # (1, 1, C, fh, fw)
+    mem_samples: torch.Tensor      # (M, C, Hf, Wf)
+    mem_boxes: torch.Tensor        # (M, 4) xywh in patch coordinates
+    mem_weights: torch.Tensor      # (M,)
+    num_stored: torch.Tensor       # () int32
+    num_init: torch.Tensor         # () int32
+    prev_ind: torch.Tensor         # () int32, -1 = none
+    iou_mod3: torch.Tensor         # (1, D)
+    iou_mod4: torch.Tensor         # (1, D)
+    frame_num: int                 # host count: 1 after initialize
+    flag: torch.Tensor             # () int32, the last localisation flag
+    max_score: torch.Tensor        # ()
+
+
+def _get_iounet_box(pos, sz, sample_pos, sample_scale, img_sample_sz) -> torch.Tensor:
+    """Image-coordinate target (y, x) centre and (h, w) size -> (x, y, w, h)
+    box in the patch frame."""
+    box_center = (pos - sample_pos) / sample_scale + (img_sample_sz - 1) / 2
+    box_sz = sz / sample_scale
+    target_ul = box_center - (box_sz - 1) / 2
+    return torch.cat([target_ul.flip(-1), box_sz.flip(-1)])
+
+
+class DiMPTracker(BaseTracker):
+    """One instance tracks one target in one sequence."""
+
+    def __init__(self, params: DiMPParams, net, device="cuda"):
+        super().__init__(params, device)
+        self.net = net.to(self.device).eval().requires_grad_(False)
+        # per-frame constants, uploaded once (a host tensor copied to the
+        # card mid-frame would synchronise)
+        s = params.image_sample_size
+        self._img_sample_sz = self._f32([s, s])
+        self._score_center = self._f32([(self._score_sz - 1) / 2] * 2)
+        self._jitter_scale = self._f32([params.box_jitter_pos] * 2 + [params.box_jitter_sz] * 2)
+        self._window = dcf.hann2d((self._score_sz,) * 2, self.device) \
+            if params.window_output else None
+        self.state: Optional[DiMPState] = None
+        self._seed = 0
+        self._generator: Optional[torch.Generator] = None
+
+    def _f32(self, values) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.float32, device=self.device)
+
+    @property
+    def _feature_sz(self) -> int:
+        return self.params.image_sample_size // self.params.feature_stride
+
+    @property
+    def _score_sz(self) -> int:
+        return self._feature_sz + (self.params.kernel_size + 1) % 2
+
+    # ---------------------------------------------------------------- draws
+
+    def _uniform(self, shape) -> torch.Tensor:
+        """U[0, 1) draws (the box jitter)."""
+        return torch.rand(shape, generator=self._generator, device=self.device)
+
+    def _keep_mask(self, shape, prob: float) -> torch.Tensor:
+        """Bernoulli(1 - prob) keep mask (the dropout augmentation)."""
+        return torch.rand(shape, generator=self._generator, device=self.device) < 1.0 - prob
+
+    # ---------------------------------------------------------------- host API
+
+    @torch.no_grad()
+    @ieee_float32()
+    def initialize(self, image, info: Dict[str, Any]) -> dict:
+        """image (H, W, 3) RGB; info['init_bbox'] = [x, y, w, h]."""
+        im = self._image_tensor(image)
+        bbox = self._f32(info["init_bbox"])
+        self._generator = torch.Generator(device=self.device).manual_seed(self._seed)
+        self._aug_rng = np.random.RandomState(self._seed)
+        image_sz = self._f32([im.shape[1], im.shape[2]])
+        self.state = self._initialize_from_patch(self._init_crop(im, bbox), bbox, image_sz)
+        return {}
+
+    @torch.no_grad()
+    @ieee_float32()
+    def track(self, image, info: Optional[dict] = None) -> dict:
+        im = self._image_tensor(image)
+        patch, coords = self._track_crop(self.state, im)
+        self.state, out = self._track_from_patch(self.state, patch, coords)
+        host = torch.cat([out["target_bbox"], out["max_score"][None],
+                          out["flag"][None].float()]).cpu().numpy()    # the one sync
+        flag = int(host[5])
+        self._update_classifier(flag)
+        return {"target_bbox": host[:4].tolist(), "max_score": float(host[4]),
+                "flag": FLAG_NAMES[flag]}
+
+    # ---------------------------------------------------------------- initialize
+
+    def _target_geometry(self, bbox):
+        """(y, x) centre, (h, w) size and the sample scale of an xywh box."""
+        pos = torch.stack([bbox[1] + (bbox[3] - 1) / 2, bbox[0] + (bbox[2] - 1) / 2])
+        target_sz = torch.stack([bbox[3], bbox[2]])
+        search_area = torch.prod(target_sz * self.params.search_area_scale)
+        target_scale = torch.sqrt(search_area) / torch.sqrt(torch.prod(self._img_sample_sz))
+        return pos, target_sz, target_scale
+
+    def _init_crop(self, im, bbox) -> torch.Tensor:
+        """The expanded base patch the augmentations are cut from."""
+        p = self.params
+        pos, _, target_scale = self._target_geometry(bbox)
+        exp_sz = int(round(p.image_sample_size * p.augmentation_expansion_factor))
+        exp_sz += (exp_sz - p.image_sample_size) % 2
+        base_patch, _ = sample_patch(im, torch.round(pos), (target_scale * exp_sz).expand(2),
+                                     (exp_sz, exp_sz))
+        return base_patch
+
+    def _initialize_from_patch(self, base_patch, bbox, image_sz) -> DiMPState:
+        p = self.params
+        net = self.net
+        s = p.image_sample_size
+        img_sample_sz = self._img_sample_sz
+        pos, target_sz, target_scale = self._target_geometry(bbox)
+        base_target_sz = target_sz / target_scale
+        init_sample_pos = torch.round(pos)
+
+        augs = dict(p.augmentation)
+        transforms = aug.build_transforms({k: v for k, v in augs.items() if k != "dropout"},
+                                          (s, s), p.random_shift_factor, self._aug_rng)
+        im_patches = aug.apply_all(base_patch, transforms, (s, s))       # (T, 3, s, s)
+        backbone_feat = net.extract_backbone(im_patches)
+        x = net.extract_classification_feat(backbone_feat)               # (T, C, Hf, Wf)
+
+        num_drop = 0
+        if "dropout" in augs:
+            num_drop, prob = augs["dropout"]
+            keep = self._keep_mask((num_drop, x.shape[1], 1, 1), prob)
+            x = torch.cat([x, aug.dropout2d(x, keep, prob)])
+
+        cls_target_box = _get_iounet_box(pos, target_sz, init_sample_pos, target_scale,
+                                         img_sample_sz)
+        shifts = [[t.shift[1], t.shift[0], 0.0, 0.0] for t in transforms]
+        shifts = self._f32(shifts + shifts[:1] * num_drop)
+        target_boxes = cls_target_box + shifts                           # (T + D, 4)
+
+        target_filter = net.classifier.get_filter(x[:, None], target_boxes[:, None],
+                                                  num_iter=p.net_opt_iter)
+
+        M = p.sample_memory_size
+        n_init = x.shape[0]
+        mem_samples = x.new_zeros((M,) + x.shape[1:])
+        mem_samples[:n_init] = x
+        mem_boxes = x.new_zeros((M, 4))
+        mem_boxes[:n_init] = target_boxes
+        mem_weights = x.new_zeros((M,))
+        mem_weights[:n_init] = 1.0 / n_init
+
+        # IoU-Net modulation from the first (identity) sample
+        bfeat_first = {k: v[:1] for k, v in backbone_feat.items()}
+        mod3, mod4 = net.bb_regressor.get_modulation(net.get_backbone_bbreg_feat(bfeat_first),
+                                                     target_boxes[None, 0])
+
+        def i32(v):
+            return torch.tensor(v, dtype=torch.int32, device=self.device)
+
+        return DiMPState(
+            pos=pos, target_sz=target_sz, target_scale=target_scale,
+            base_target_sz=base_target_sz, image_sz=image_sz,
+            min_scale=torch.max(10.0 / base_target_sz),
+            max_scale=torch.min(image_sz / base_target_sz),
+            target_filter=target_filter, mem_samples=mem_samples, mem_boxes=mem_boxes,
+            mem_weights=mem_weights, num_stored=i32(n_init), num_init=i32(n_init),
+            prev_ind=i32(-1), iou_mod3=mod3, iou_mod4=mod4, frame_num=1,
+            flag=i32(FLAG_NORMAL), max_score=torch.ones((), device=self.device))
+
+    # ---------------------------------------------------------------- track
+
+    def _track_crop(self, state: DiMPState, im):
+        """The search patch around the target and its extent in the image."""
+        p = self.params
+        feat_sz = float(self._feature_sz)
+        centered_pos = state.pos + ((feat_sz + p.kernel_size) % 2) * \
+            state.target_scale * self._img_sample_sz / (2 * feat_sz)
+        s = p.image_sample_size
+        return sample_patch(im, centered_pos, state.target_scale * self._img_sample_sz, (s, s))
+
+    def _track_from_patch(self, state: DiMPState, patch, coords):
+        p = self.params
+        net = self.net
+        img_sample_sz = self._img_sample_sz
+        state = dataclasses.replace(state, frame_num=state.frame_num + 1)
+
+        sample_pos = 0.5 * (coords[:2] + coords[2:])
+        sample_scale = torch.sqrt(torch.prod((coords[2:] - coords[:2]) / img_sample_sz))
+
+        backbone_feat = net.extract_backbone(patch[None])
+        test_x = net.extract_classification_feat(backbone_feat)           # (1, C, Hf, Wf)
+        scores = net.classifier.classify(state.target_filter, test_x)[0, 0]
+
+        translation_vec, flag, max_score = self._localize(state, scores, sample_pos,
+                                                          sample_scale)
+        new_pos = sample_pos + translation_vec
+        found = flag != FLAG_NOT_FOUND
+        inside_offset = (p.target_inside_ratio - 0.5) * state.target_sz
+        clamped = torch.maximum(torch.minimum(new_pos, state.image_sz - inside_offset),
+                                inside_offset)
+        state = dataclasses.replace(state, pos=torch.where(found, clamped, state.pos))
+
+        state = self._refine_target_box(state, backbone_feat, sample_pos, sample_scale, found)
+
+        update_flag = (flag != FLAG_NOT_FOUND) & (flag != FLAG_UNCERTAIN)
+        target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
+                                     img_sample_sz)
+        lr = torch.where(flag == FLAG_HARD_NEG, p.hard_negative_learning_rate, p.learning_rate)
+        state = self._update_memory_masked(state, test_x[0], target_box, lr, update_flag)
+
+        state = dataclasses.replace(state, flag=flag, max_score=max_score)
+        bbox = torch.cat([state.pos.flip(-1) - (state.target_sz.flip(-1) - 1) / 2,
+                          state.target_sz.flip(-1)])
+        return state, {"target_bbox": bbox, "max_score": max_score, "flag": flag}
+
+    # ---------------------------------------------------------------- localisation
+
+    def _localize(self, state: DiMPState, scores, sample_pos, sample_scale):
+        """Advanced localisation with distractor analysis on the (Hs, Ws)
+        score map: (translation (2,), flag () int32, max score ())."""
+        p = self.params
+        img_sample_sz = self._img_sample_sz
+        output_sz = float(self._feature_sz)     # score cells stride the feature grid
+        h, w = scores.shape[-2], scores.shape[-1]
+        disp_to_img = (img_sample_sz / output_sz) * sample_scale
+
+        scores_hn = scores
+        if self._window is not None and p.perform_hn_without_windowing:
+            # the window applies to the primary peak only in this mode
+            scores = scores * self._window
+
+        max_score1, max_disp1 = dcf.max2d(scores)
+        max_disp1 = max_disp1.float()
+        target_disp1 = max_disp1 - self._score_center
+        translation_vec1 = target_disp1 * disp_to_img
+
+        # mask the target neighbourhood and find the second peak
+        target_neigh_sz = p.target_neighborhood_scale * (state.target_sz / sample_scale) * \
+            (output_sz / img_sample_sz)
+        iy = torch.arange(h, dtype=torch.float32, device=scores.device)[:, None]
+        ix = torch.arange(w, dtype=torch.float32, device=scores.device)[None, :]
+        in_neigh = ((torch.abs(iy - max_disp1[0]) <= target_neigh_sz[0] / 2 + 0.5)
+                    & (torch.abs(ix - max_disp1[1]) <= target_neigh_sz[1] / 2 + 0.5))
+        max_score2, max_disp2 = dcf.max2d(torch.where(in_neigh, 0.0, scores_hn))
+        target_disp2 = max_disp2.float() - self._score_center
+        translation_vec2 = target_disp2 * disp_to_img
+
+        # the previous position in score cells from this sample's centre
+        prev_target_vec = (state.pos - sample_pos) / disp_to_img
+        disp_norm1 = torch.sqrt(torch.sum((target_disp1 - prev_target_vec) ** 2))
+        disp_norm2 = torch.sqrt(torch.sum((target_disp2 - prev_target_vec) ** 2))
+        disp_threshold = p.displacement_scale * math.sqrt(h * w) / 2
+
+        distractor = max_score2 > p.distractor_threshold * max_score1
+        hn1 = distractor & (disp_norm2 > disp_threshold) & (disp_norm1 < disp_threshold)
+        hn2 = distractor & (disp_norm2 < disp_threshold) & (disp_norm1 > disp_threshold)
+        uncertain_both = distractor & ~hn1 & ~hn2
+        hard_neg2 = (~distractor & (max_score2 > p.hard_negative_threshold * max_score1)
+                     & (max_score2 > p.target_not_found_threshold))
+
+        trans = translation_vec1
+        flag = torch.zeros((), dtype=torch.int32, device=scores.device)
+        flag = torch.where(hard_neg2, FLAG_HARD_NEG, flag)
+        flag = torch.where(uncertain_both, FLAG_UNCERTAIN, flag)
+        flag = torch.where(hn2, FLAG_HARD_NEG, flag)
+        trans = torch.where(hn2, translation_vec2, trans)
+        flag = torch.where(hn1, FLAG_HARD_NEG, flag)
+        trans = torch.where(hn1, translation_vec1, trans)
+        # the not-found threshold dominates
+        not_found = max_score1 < p.target_not_found_threshold
+        flag = torch.where(not_found, FLAG_NOT_FOUND, flag)
+        trans = torch.where(not_found, translation_vec1, trans)
+        return trans, flag, max_score1
+
+    # ---------------------------------------------------------------- box refinement
+
+    def _refine_target_box(self, state: DiMPState, backbone_feat, sample_pos, sample_scale,
+                           found) -> DiMPState:
+        """IoU-Net gradient ascent on the current box and jittered copies;
+        the mean of the best `iounet_k` valid boxes becomes the target."""
+        p = self.params
+        net = self.net
+        img_sample_sz = self._img_sample_sz
+        init_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
+                                   img_sample_sz)
+        iou_feat = net.bb_regressor.get_iou_feat(net.get_backbone_bbreg_feat(backbone_feat))
+        modulation = (state.iou_mod3, state.iou_mod4)
+
+        square_sz = torch.sqrt(torch.prod(init_box[2:]))
+        rand_bb = (self._uniform((p.num_init_random_boxes, 4)) - 0.5) * \
+            (square_sz * self._jitter_scale)
+        new_sz = torch.maximum(init_box[2:] + rand_bb[:, 2:], torch.min(init_box[2:]) / 3)
+        new_center = (init_box[:2] + init_box[2:] / 2) + rand_bb[:, :2]
+        jittered = torch.cat([new_center - new_sz / 2, new_sz], dim=1)
+        boxes = torch.cat([init_box[None], jittered])                    # (B + 1, 4)
+
+        def iou_fn(b):
+            return net.bb_regressor.predict_iou(modulation, iou_feat, b[None])[0]
+
+        step = p.box_refinement_step_length
+        for _ in range(p.box_refinement_iter):
+            with torch.enable_grad():
+                b = boxes.detach().requires_grad_(True)
+                grad, = torch.autograd.grad(iou_fn(b).sum(), b)
+            boxes = boxes + step * grad * boxes[:, 2:].repeat(1, 2)
+            step = step * p.box_refinement_step_decay
+        iou = iou_fn(boxes)
+
+        # drop degenerate aspect ratios by -inf
+        boxes = torch.cat([boxes[:, :2], torch.clamp(boxes[:, 2:], min=1.0)], dim=1)
+        ar = boxes[:, 2] / boxes[:, 3]
+        valid = (ar < p.maximal_aspect_ratio) & (ar > 1 / p.maximal_aspect_ratio)
+        iou = torch.where(valid, iou, -math.inf)
+
+        # top k, the first index on ties (stable sort, as lax.top_k)
+        k = min(p.iounet_k, boxes.shape[0])
+        top_iou, top_idx = torch.sort(iou, descending=True, stable=True)
+        top_iou, top_idx = top_iou[:k], top_idx[:k]
+        top_valid = torch.isfinite(top_iou)
+        denom = torch.clamp(top_valid.sum(), min=1)
+        pred_box = torch.where(top_valid[:, None], boxes[top_idx], 0.0).sum(0) / denom
+
+        new_pos = pred_box[:2] + pred_box[2:] / 2
+        new_pos = (new_pos.flip(-1) - (img_sample_sz - 1) / 2) * sample_scale + sample_pos
+        new_target_sz = pred_box[2:].flip(-1) * sample_scale
+        new_scale = torch.sqrt(torch.prod(new_target_sz) / torch.prod(state.base_target_sz))
+
+        apply = found & valid.any()
+        new_scale = torch.minimum(torch.maximum(new_scale, state.min_scale), state.max_scale)
+        return dataclasses.replace(
+            state, pos=torch.where(apply, new_pos, state.pos),
+            target_sz=torch.where(apply, new_target_sz, state.target_sz),
+            target_scale=torch.where(apply, new_scale, state.target_scale))
+
+    # ---------------------------------------------------------------- memory
+
+    def _update_memory_masked(self, state: DiMPState, sample, target_box, lr,
+                              do_update) -> DiMPState:
+        """Weighted-replacement ring-buffer update, masked by `do_update`:
+        the new sample replaces the lightest slot after the initial ones."""
+        p = self.params
+        M = p.sample_memory_size
+        sw = state.mem_weights
+        num_init = state.num_init
+        num_stored = state.num_stored
+        init_w = p.init_samples_minimum_weight
+
+        idx = torch.arange(M, device=self.device)
+        s_ind = num_init if init_w > 0 else 0
+        r_ind_full = torch.argmin(torch.where(idx >= s_ind, sw, math.inf))
+        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)
+
+        prev = state.prev_ind
+        sw_new = torch.where(prev < 0, sw / (1 - lr), sw)
+        new_w = torch.where(prev < 0, lr, take(sw, torch.clamp(prev, min=0)) / (1 - lr))
+        sw_new = torch.where(idx == r_ind, new_w, sw_new)
+        sw_new = sw_new / sw_new.sum()
+        if init_w > 0:
+            init_mask = idx < num_init
+            init_sum = torch.where(init_mask, sw_new, 0.0).sum()
+            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum()
+            sw_adj = torch.where(init_mask, init_w / torch.clamp(num_init, min=1),
+                                 sw_new * (1.0 / (init_w + rest_sum)))
+            sw_new = torch.where(init_sum < init_w, sw_adj, sw_new)
+
+        masked_slot_set(state.mem_samples, r_ind, sample, do_update)
+        masked_slot_set(state.mem_boxes, r_ind, target_box, do_update)
+        return dataclasses.replace(
+            state,
+            mem_weights=torch.where(do_update, sw_new, state.mem_weights),
+            num_stored=torch.where(do_update, torch.clamp(num_stored + 1, max=M), num_stored),
+            prev_ind=torch.where(do_update, r_ind.to(torch.int32), state.prev_ind))
+
+    def _classifier_iterations(self, flag: int, frame_num: int) -> int:
+        """Optimiser iterations for this frame: the hard-negative count on a
+        confident hard negative, the periodic count every `train_skipping`
+        frames, else none."""
+        p = self.params
+        if flag in (FLAG_NOT_FOUND, FLAG_UNCERTAIN):
+            return 0
+        if flag == FLAG_HARD_NEG:
+            return p.net_opt_hn_iter
+        if (frame_num - 1) % p.train_skipping == 0:
+            return p.net_opt_update_iter
+        return 0
+
+    def _update_classifier(self, flag: int) -> None:
+        """Refit the filter over the memory, enqueued after the frame's
+        readback; the next frame's classification follows it in the
+        stream."""
+        state = self.state
+        num_iter = self._classifier_iterations(flag, state.frame_num)
+        if num_iter == 0:
+            return
+        new_filter = self.net.classifier.filter_optimizer(
+            state.target_filter, state.mem_samples[:, None], state.mem_boxes[:, None],
+            sample_weight=state.mem_weights[:, None], num_iter=num_iter)
+        self.state = dataclasses.replace(state, target_filter=new_filter)

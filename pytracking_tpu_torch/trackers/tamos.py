@@ -24,25 +24,11 @@ import torch
 
 from pytracking_tpu_torch.ops import dcf
 from pytracking_tpu_torch.ops.patch import sample_patch
-from pytracking_tpu_torch.trackers.base import BaseTracker
+from pytracking_tpu_torch.trackers.base import BaseTracker, masked_slot_set, take
 from pytracking_tpu_torch.utils.device import ieee_float32
 
 FLAG_NORMAL, FLAG_NOT_FOUND, FLAG_HARD_NEG, FLAG_UNCERTAIN = 0, 1, 2, 3
 FLAG_NAMES = ["normal", "not_found", "hard_negative", "uncertain"]
-
-
-def _take(x: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
-    """x[ind] for a 0-dim index tensor, without reading it on the host."""
-    return x.index_select(0, ind.reshape(1).long())[0]
-
-
-def _masked_slot_set(buf: torch.Tensor, ind: torch.Tensor, value: torch.Tensor,
-                     do_update: torch.Tensor) -> None:
-    """In place: buf[ind] = value where do_update, else buf[ind] keeps its
-    contents. Only the chosen slot is read and written; `ind` stays on the
-    device."""
-    slot = torch.where(do_update, value, _take(buf, ind))
-    buf.index_copy_(0, ind.reshape(1).long(), slot[None])
 
 
 @dataclass(frozen=True)
@@ -293,7 +279,7 @@ class TaMOsTracker(BaseTracker):
                                  & (max_scores > p.conf_ths))
         do_update = per_obj_ok.all() & p.update_classifier
         last_obj = (K - 1) - torch.argmax(valid.flip(0).to(torch.int32))
-        lr = torch.where(_take(flags, last_obj) == FLAG_HARD_NEG,
+        lr = torch.where(take(flags, last_obj) == FLAG_HARD_NEG,
                          p.hard_negative_learning_rate, p.learning_rate)
         labels = self._labels(state.pos, sfac, state.sigma, valid)
         cur_boxes = torch.cat([state.pos.flip(-1) - (state.target_sz.flip(-1) - 1) / 2,
@@ -375,7 +361,7 @@ class TaMOsTracker(BaseTracker):
 
         prev = state.prev_ind
         sw_new = torch.where(prev < 0, sw / (1 - lr), sw)
-        new_w = torch.where(prev < 0, lr, _take(sw, torch.clamp(prev, min=0)) / (1 - lr))
+        new_w = torch.where(prev < 0, lr, take(sw, torch.clamp(prev, min=0)) / (1 - lr))
         sw_new = torch.where(idx == r_ind, new_w, sw_new)
         sw_new = sw_new / sw_new.sum()
         if init_w and init_w > 0:
@@ -385,9 +371,9 @@ class TaMOsTracker(BaseTracker):
             sw_adj = torch.where(init_mask, init_w, sw_new / (init_w + rest_sum))
             sw_new = torch.where(init_sum < init_w, sw_adj, sw_new)
 
-        _masked_slot_set(state.mem_samples, r_ind, sample, do_update)
-        _masked_slot_set(state.mem_labels, r_ind, labels, do_update)
-        _masked_slot_set(state.mem_boxes, r_ind, boxes, do_update)
+        masked_slot_set(state.mem_samples, r_ind, sample, do_update)
+        masked_slot_set(state.mem_labels, r_ind, labels, do_update)
+        masked_slot_set(state.mem_boxes, r_ind, boxes, do_update)
         return dataclasses.replace(
             state,
             mem_weights=torch.where(do_update, sw_new, state.mem_weights),

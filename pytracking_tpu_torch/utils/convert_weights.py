@@ -1,5 +1,5 @@
-"""Flax variables of the JAX package's TaMOsNet -> state_dict of the port's
-TaMOsNet.
+"""Flax variables of the JAX package's TaMOsNet and DiMPnet -> state_dicts
+of the port's nets.
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree as
 nested dicts of numpy arrays (np.asarray of each leaf), so this module
@@ -9,7 +9,10 @@ imports no JAX. Conversions:
     biases (H, hd) -> (H*hd,);
   * norm scale -> weight; BatchNorm mean/var -> running_mean/running_var;
   * the scanned encoder/decoder stacks (leading layer axis) are unstacked
-    into `encoder.{i}` / `decoder.{i}`.
+    into `encoder.{i}` / `decoder.{i}` (TaMOs);
+  * IoU-Net's LinearBlock Dense kernels flatten NHWC RoIs in (h, w, c)
+    order, the port flattens (c, h, w): their rows are permuted (DiMP);
+  * the DiMP optimiser's parameters keep their names and shapes.
 Every flax leaf is consumed by construction (an unknown one raises); with
 `net` given, the result must hold exactly the net's keys and shapes.
 """
@@ -81,44 +84,80 @@ def _convert_leaf(module_path: tuple, leaf: str, arr: np.ndarray) -> tuple:
     raise KeyError(f"unknown flax leaf {'/'.join(module_path + (leaf,))}")
 
 
-def tamosnet_from_flax(variables: Mapping,
-                       net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
-    """Convert the flax variables of a TaMOsNet into the port's state_dict.
-    With `net`, raise unless the keys and shapes are exactly the net's."""
+def _flat_variables(variables: Mapping) -> Dict[tuple, np.ndarray]:
     flat = {}
     for collection in ("params", "batch_stats"):
         flat.update(_flatten(variables.get(collection, {})))
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
         raise KeyError(f"unconverted flax collections {sorted(extra)}")
+    return flat
 
+
+def _put(sd: Dict[str, torch.Tensor], key: str, arr: np.ndarray) -> None:
+    if key in sd:
+        raise KeyError(f"two flax leaves map to {key}")
+    sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def _check_against(sd: Dict[str, torch.Tensor], net: Optional[nn.Module]) -> None:
+    """Raise unless sd holds exactly the net's keys, at the net's shapes."""
+    if net is None:
+        return
+    expected = net.state_dict()
+    missing = sorted(set(expected) - set(sd))
+    unexpected = sorted(set(sd) - set(expected))
+    if missing or unexpected:
+        raise KeyError(f"torch keys without a flax leaf: {missing}; "
+                       f"flax leaves without a torch key: {unexpected}")
+    bad = [k for k in sd if tuple(sd[k].shape) != tuple(expected[k].shape)]
+    if bad:
+        raise ValueError("shape mismatch: " + ", ".join(
+            f"{k} {tuple(sd[k].shape)} vs {tuple(expected[k].shape)}" for k in bad))
+
+
+def tamosnet_from_flax(variables: Mapping,
+                       net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a TaMOsNet into the port's state_dict.
+    With `net`, raise unless the keys and shapes are exactly the net's."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(key: str, arr: np.ndarray):
-        if key in sd:
-            raise KeyError(f"two flax leaves map to {key}")
-        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
-
-    for path, arr in flat.items():
+    for path, arr in _flat_variables(variables).items():
         module_path, leaf = path[:-1], path[-1]
         stack_path, sub = _torch_module_path(module_path)
         if sub is None:
             tname, tarr = _convert_leaf(module_path, leaf, arr)
-            put(".".join(module_path + (tname,)), tarr)
+            _put(sd, ".".join(module_path + (tname,)), tarr)
             continue
         for layer in range(arr.shape[0]):
             tname, tarr = _convert_leaf(sub, leaf, arr[layer])
-            put(".".join(stack_path + (str(layer),) + sub + (tname,)), tarr)
+            _put(sd, ".".join(stack_path + (str(layer),) + sub + (tname,)), tarr)
+    _check_against(sd, net)
+    return sd
 
-    if net is not None:
-        expected = net.state_dict()
-        missing = sorted(set(expected) - set(sd))
-        unexpected = sorted(set(sd) - set(expected))
-        if missing or unexpected:
-            raise KeyError(f"torch keys without a flax leaf: {missing}; "
-                           f"flax leaves without a torch key: {unexpected}")
-        bad = [k for k in sd if tuple(sd[k].shape) != tuple(expected[k].shape)]
-        if bad:
-            raise ValueError("shape mismatch: " + ", ".join(
-                f"{k} {tuple(sd[k].shape)} vs {tuple(expected[k].shape)}" for k in bad))
+
+_DIMP_OPTIMIZER_LEAVES = ("log_step_length", "filter_reg", "label_map_w", "target_mask_w",
+                          "spatial_weight_w")
+# IoU-Net LinearBlocks and the (h, w) of the RoI each flattens
+_LINEAR_BLOCK_HW = {"fc3_rt": (5, 5), "fc4_rt": (3, 3)}
+
+
+def dimpnet_from_flax(variables: Mapping,
+                      net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a DiMPnet into the port's state_dict.
+    With `net`, raise unless the keys and shapes are exactly the net's."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _flat_variables(variables).items():
+        module_path, leaf = path[:-1], path[-1]
+        if module_path[-1:] == ("filter_optimizer",) and leaf in _DIMP_OPTIMIZER_LEAVES:
+            tname, tarr = leaf, arr
+        elif leaf == "kernel" and len(module_path) >= 2 and module_path[-2] in _LINEAR_BLOCK_HW:
+            h, w = _LINEAR_BLOCK_HW[module_path[-2]]
+            n_in, n_out = arr.shape
+            tname = "weight"
+            tarr = arr.reshape(h, w, n_in // (h * w), n_out).transpose(3, 2, 0, 1).reshape(
+                n_out, n_in)
+        else:
+            tname, tarr = _convert_leaf(module_path, leaf, arr)
+        _put(sd, ".".join(module_path + (tname,)), tarr)
+    _check_against(sd, net)
     return sd

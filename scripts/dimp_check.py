@@ -1,0 +1,209 @@
+#!/usr/bin/env python3
+"""Checks of the seeded DiMP-50 on chip_smoke.py's synthetic sequence, on
+the card.
+
+    python3 scripts/dimp_check.py scores [threshold ...]
+    python3 scripts/dimp_check.py gate [frames]
+    python3 scripts/dimp_check.py stages [frames]
+
+scores: for each not-found threshold (DiMP-50's 0.25 first), `initialize` +
+110 frames of `DiMPTracker` with `dimp50.parameters(device="cuda", seed=0)`
+and that threshold; prints the first and second score peaks of the
+localisation (min / median / max over the frames), the flag histogram and
+the optimiser iterations per frame. Random weights put the peaks far below
+a trained net's; this shows which threshold lets the seeded net find the
+target, so that the memory update and the classifier refits run.
+
+gate: chip_smoke.py's dimp_gate frame by frame (card against CPU, IEEE
+float32, the card's draws replayed on the CPU): per frame the flags, the
+box difference, and the refined boxes' top k + 1 final IoUs on both,
+sorted.
+
+stages: where a tracked frame's time goes, by stage of the step (backbone,
+classification, localisation, box refinement, memory update, classifier
+refit, the rest: crop and readback): host time, device kernel time and
+kernel launches per frame under torch.profiler, the stages marked with
+record_function, over a few frames after chip_smoke.py's 110.
+"""
+
+import collections
+import dataclasses
+import functools
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from pytracking_tpu_torch.ops import dcf  # noqa: E402
+from pytracking_tpu_torch.parameter.dimp import dimp50  # noqa: E402
+from pytracking_tpu_torch.trackers import dimp as t_dimp  # noqa: E402
+
+
+def scores(args):
+    thresholds = [0.25] + [float(x) for x in args]
+    spec = dimp50.parameters(device="cuda", seed=0)
+    peaks = []
+    max2d = dcf.max2d
+
+    def recording(a):
+        value, idx = max2d(a)
+        peaks.append(value)
+        return value, idx
+
+    t_dimp.dcf.max2d = recording
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [chip_smoke.dimp_frame(bg, t) for t in range(chip_smoke.N_FRAMES + 1)]
+    for thr in thresholds:
+        params = dataclasses.replace(spec.params, target_not_found_threshold=thr)
+        tracker = t_dimp.DiMPTracker(params, spec.net, device="cuda")
+        tracker.initialize(frames[0], chip_smoke.DIMP_INIT)
+        peaks.clear()
+        outs, iters = [], []
+        for im in frames[1:]:
+            out = tracker.track(im)
+            outs.append(out)
+            iters.append(tracker._classifier_iterations(t_dimp.FLAG_NAMES.index(out["flag"]),
+                                                        tracker.state.frame_num))
+        p = torch.stack(peaks).cpu().numpy().reshape(-1, 2)        # (frames, [max1, max2])
+        stats = {name: (float(v.min()), float(np.median(v)), float(v.max()))
+                 for name, v in (("max1", p[:, 0]), ("max2", p[:, 1]))}
+        print(f"threshold {thr}: peaks (min, median, max) "
+              + ", ".join(f"{k} ({a:.4f}, {b:.4f}, {c:.4f})" for k, (a, b, c) in stats.items())
+              + f"; flags {dict(collections.Counter(o['flag'] for o in outs))}; optimiser "
+              f"iterations {dict(sorted(collections.Counter(iters).items()))}; last box "
+              f"{[round(x, 1) for x in outs[-1]['target_bbox']]}", flush=True)
+
+
+def gate(args):
+    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
+
+    n = int(args[0]) if args else chip_smoke.DIMP_GATE_FRAMES
+    spec = dimp50.parameters(device="cuda", seed=0)
+    params = dataclasses.replace(spec.params,
+                                 target_not_found_threshold=chip_smoke.DIMP_NOT_FOUND_THRESHOLD)
+    net_cpu = dimpnet50(device="cpu")
+    net_cpu.load_state_dict({k: v.cpu() for k, v in spec.net.state_dict().items()})
+    trackers = {"card": t_dimp.DiMPTracker(params, spec.net, device="cuda"),
+                "cpu": t_dimp.DiMPTracker(params, net_cpu, device="cpu")}
+    draws, ious = [], {"card": [], "cpu": []}
+
+    def recording(fn):
+        def draw(*a):
+            out = fn(*a)
+            draws.append(out.cpu())
+            return out
+        return draw
+
+    card, cpu = trackers["card"], trackers["cpu"]
+    card._uniform, card._keep_mask = recording(card._uniform), recording(card._keep_mask)
+    cpu._uniform = cpu._keep_mask = lambda *a: draws.pop(0)
+    for name, tr in trackers.items():
+        predict = tr.net.bb_regressor.predict_iou
+
+        def recorded(*a, name=name, predict=predict):
+            out = predict(*a)
+            ious[name].append(out.detach())
+            return out
+
+        tr.net.bb_regressor.predict_iou = recorded
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [chip_smoke.dimp_frame(bg, t) for t in range(n + 1)]
+    for tr in trackers.values():
+        tr.initialize(frames[0], chip_smoke.DIMP_INIT)
+    k = params.iounet_k
+    for t, im in enumerate(frames[1:], 1):
+        for v in ious.values():
+            v.clear()
+        out = {name: tr.track(im) for name, tr in trackers.items()}
+        diff = np.abs(np.subtract(out["card"]["target_bbox"], out["cpu"]["target_bbox"])).max()
+        line = f"frame {t}: flags {out['card']['flag']}/{out['cpu']['flag']}, box diff {diff:.3e} px"
+        for name in trackers:
+            final = torch.sort(ious[name][-1][0].cpu(), descending=True, stable=True)
+            line += (f"; {name} top {final.indices[:k + 1].tolist()} iou "
+                     f"{[round(x, 6) for x in final.values[:k + 1].tolist()]}")
+        print(line, flush=True)
+
+
+STAGES = {  # label: (object path from the tracker, method)
+    "backbone": ("net", "extract_backbone"),
+    "classification feature": ("net", "extract_classification_feat"),
+    "classification scores": ("net.classifier", "classify"),
+    "localisation": ("", "_localize"),
+    "box refinement (IoU features, 5 ascent steps)": ("", "_refine_target_box"),
+    "memory update": ("", "_update_memory_masked"),
+    "classifier refit": ("", "_update_classifier"),
+}
+
+
+def stages(args):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    n = int(args[0]) if args else 5
+    spec = dimp50.parameters(device="cuda", seed=0)
+    params = dataclasses.replace(spec.params,
+                                 target_not_found_threshold=chip_smoke.DIMP_NOT_FOUND_THRESHOLD)
+    tracker = t_dimp.DiMPTracker(params, spec.net, device="cuda")
+    for label, (path, name) in STAGES.items():
+        obj = functools.reduce(getattr, path.split("."), tracker) if path else tracker
+        fn = getattr(obj, name)
+
+        def marked(*a, fn=fn, label=label, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+
+        setattr(obj, name, marked)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    total = chip_smoke.N_FRAMES + n
+    frames = [chip_smoke.dimp_frame(bg, t) for t in range(total + 1)]
+    tracker.initialize(frames[0], chip_smoke.DIMP_INIT)
+    for im in frames[1:chip_smoke.N_FRAMES + 1]:
+        tracker.track(im)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for im in frames[chip_smoke.N_FRAMES + 1:]:
+            with record_function("frame"):
+                tracker.track(im)
+    # a kernel belongs to the stages whose host span holds its launch, on
+    # any thread (autograd runs the backward on its own thread); a kernel
+    # listed under its launch call and again under the op around it counts
+    # once, at the innermost
+    rows = collections.defaultdict(lambda: [0.0, 0, 0.0])     # host us, kernels, device us
+    events = prof.events()
+    spans = [e for e in events if (e.name in STAGES or e.name == "frame")
+             and e.device_type == DeviceType.CPU]     # not their copies on the device timeline
+    for e in spans:
+        rows[e.name][0] += e.time_range.elapsed_us()
+    for e in events:
+        if not e.kernels or any(c.kernels for c in e.cpu_children):
+            continue
+        for span in spans:
+            if span.time_range.start <= e.time_range.start <= span.time_range.end:
+                rows[span.name][1] += len(e.kernels)
+                rows[span.name][2] += sum(k.duration for k in e.kernels)
+    fh, fk, fd = rows["frame"]
+    print(f"stages over {n} frames (per frame, under the profiler): host {fh / n / 1e3:.3f} ms, "
+          f"{fk / n:.0f} kernels, device {fd / n / 1e3:.3f} ms", flush=True)
+    rest = [fh - sum(rows[x][0] for x in STAGES), fk - sum(rows[x][1] for x in STAGES),
+            fd - sum(rows[x][2] for x in STAGES)]
+    for label, (h, k, d) in [(x, rows[x]) for x in STAGES] + [("rest (crop, readback)", rest)]:
+        print(f"  {label:48s} host {h / n / 1e3:8.3f} ms ({100 * h / fh:4.1f}%)  "
+              f"kernels {k / n:6.1f} ({100 * k / max(fk, 1):4.1f}%)  device {d / n / 1e3:7.3f} ms",
+              flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("dimp_check: needs a CUDA card", file=sys.stderr)
+        return 2
+    mode = sys.argv[1] if len(sys.argv) > 1 else "scores"
+    {"scores": scores, "gate": gate, "stages": stages}[mode](sys.argv[2:])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

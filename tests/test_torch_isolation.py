@@ -72,8 +72,11 @@ def test_every_port_module_imports_with_jax_blocked():
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
     from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_resnet50
+    from pytracking_tpu_torch.parameter.dimp import dimp50
     from pytracking_tpu_torch.parameter.tamos import tamos_resnet50
+    from pytracking_tpu_torch.trackers.dimp import DiMPParams, DiMPTracker
     from pytracking_tpu_torch.trackers.tamos import TaMOsParams, TaMOsTracker
     from pytracking_tpu_torch.utils.device import resolve_device
 
@@ -85,6 +88,14 @@ def test_entry_points_raise_without_cuda():
         tamosnet_resnet50(num_encoder_layers=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         TaMOsTracker(TaMOsParams(), torch.nn.Linear(1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dimp50.parameters()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dimp50.parameters(device="cuda", seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dimpnet50()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiMPTracker(DiMPParams(), torch.nn.Linear(1, 1))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
