@@ -32,7 +32,17 @@ Phases (any failure exits non-zero and prints no result line):
               frames on the card and on the CPU, both IEEE float32, each
               CPU frame started from the card's state: equal flags and
               replace indices, boxes within DIMP_GATE_PX;
-  9. dimp_profile  device kernel time by kernel over 3 DiMP frames.
+  9. dimp_profile  device kernel time by kernel over 3 DiMP frames;
+ 10. superdimp, prdimp, dimp18, superdimp_simple  the rest of the DiMP
+              family at full width on the same sequence, each as `dimp`
+              (no Pallas kernel on these paths either): SuperDiMP (DiMP-50's
+              net, 352x352 'inside_major' samples, 10 relative-space
+              refinement steps) and PrDiMP-50 (KL/Newton refit, softmax
+              scores) over 110 frames, DiMP-18 and SuperDiMP-simple (the
+              generic Gauss-Newton refit by torch.func) over 40; each at its
+              own not-found threshold (*_NOT_FOUND_THRESHOLD);
+ 11. *_gate   `dimp_gate` for each of the four over 5 frames;
+ 12. superdimp_profile  device kernel time by kernel over 3 SuperDiMP frames.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -40,7 +50,9 @@ is {"ok": true, "device": {...}}.
 """
 
 import collections
+import copy
 import dataclasses
+import importlib
 import json
 import math
 import subprocess
@@ -59,20 +71,66 @@ PEAK_SFU_EXP = 132 * 16 * 1.83e9
 TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
                                     # of 24x36 tokens), heads, head dim
 N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
+SHORT_FRAMES = 40                    # DiMP-18 and SuperDiMP-simple
 WARMUP_FRAMES = 5
 DIMP_GATE_FRAMES = 10
+FAMILY_GATE_FRAMES = 5
 # DiMP-50's not-found threshold is 0.25, for a trained net whose score peaks
 # near 1. The seeded random net's peaks are 0.04-0.25 on this sequence
 # (scripts/dimp_check.py scores): at 0.25 every frame is not_found and neither the
 # memory update nor a classifier refit ever runs. At 0.02 the frames are
 # normal, hard negative and uncertain, and every classifier branch runs.
 DIMP_NOT_FOUND_THRESHOLD = 0.02
+# The same cut for the rest of the family, each where the seeded net's score
+# peaks on this sequence give hard-negative and refit frames, and normal ones
+# where any threshold can (`scripts/dimp_check.py scores <param> [threshold
+# ...]`; NVIDIA H100 80GB HBM3, 700 W; max1/max2 are the first and second
+# peaks over the frames).
+# SuperDiMP: the initial filter's max1 is 0.0196-0.0221; at 0.25, 0.05 and
+# 0.03 every frame is not_found. At 0.02 max1 0.0196-0.0511, max2
+# 0.0172-0.0267: normal 28, hard negative 50, uncertain 28, not_found 4, 50
+# one-iteration refits.
+SUPERDIMP_NOT_FOUND_THRESHOLD = 0.02
+# PrDiMP-50: a softmax over 23x23 cells (uniform 0.0019). max1 0.0036-0.0072,
+# max2 0.0035-0.0065; at PrDiMP's 0.04, 0.01 and 0.006 every frame is
+# not_found; at 0.002-0.003 uncertain 104, hard negative 6; at 0.004
+# uncertain 100, hard negative 7, not_found 3. The second peak is within ~10%
+# of the first on every frame, past the distractor threshold (0.8), so no
+# not-found threshold gives a normal frame with these weights.
+PRDIMP_NOT_FOUND_THRESHOLD = 0.004
+# DiMP-18: at 0.25 every frame is not_found (max1 0.062-0.083). At 0.02 max1
+# 0.041-0.085, max2 0.010-0.044: normal 38, hard negative 2, two refits of
+# one iteration and two periodic ones; at 0.05, 9 not_found.
+DIMP18_NOT_FOUND_THRESHOLD = 0.02
+# SuperDiMP-simple: at 0.25 and 0.05 every frame is not_found (max1
+# 0.0426-0.0439). At 0.02 uncertain 27, hard negative 13 (max2 within 5% of
+# max1 throughout), 13 refits.
+SUPERDIMP_SIMPLE_NOT_FOUND_THRESHOLD = 0.02
 # card against CPU, both IEEE float32: cuDNN's and the CPU's convolutions sum
 # in other orders (~1e-6 relative per layer through ResNet-50); five IoU-Net
 # ascent steps scale the box gradient by the box size (~100 px), so
 # 1e-4 relative there is 0.01 px; 0.05 px leaves 5x room, a wrong op moves
 # boxes by pixels
 DIMP_GATE_PX = 0.05
+# SuperDiMP, PrDiMP and SuperDiMP-simple ascend in the relative space (cx/σ,
+# cy/σ, log w, log h), σ the current box's size, 10 steps of 2.5e-3. In
+# pixels a step moves the centre by 2.5e-3 σ² dIoU/dc and the size by
+# w · 2.5e-3 w dIoU/dw: with σ ~ 60 px in the 352 patch that is ~0.15 of
+# DiMP-50's step (w dIoU/dx at step 1), so the 10 steps travel ~0.3 of
+# DiMP-50's five. A log-size error δ is a size error of w·δ px, so rounding
+# 1e-4 relative in the gradient stays 1e-4 of the distance travelled there
+# too: below DiMP-50's 0.01 px. The same 0.05 px keeps 5x room or more.
+RELATIVE_GATE_PX = 0.05
+# parameter module: (label, package, not-found threshold, frames, gate px)
+DIMP_FAMILY = {
+    "dimp50": ("DiMP-50", "dimp", DIMP_NOT_FOUND_THRESHOLD, N_FRAMES, DIMP_GATE_PX),
+    "super_dimp": ("SuperDiMP", "dimp", SUPERDIMP_NOT_FOUND_THRESHOLD, N_FRAMES,
+                   RELATIVE_GATE_PX),
+    "prdimp50": ("PrDiMP-50", "dimp", PRDIMP_NOT_FOUND_THRESHOLD, N_FRAMES, RELATIVE_GATE_PX),
+    "dimp18": ("DiMP-18", "dimp", DIMP18_NOT_FOUND_THRESHOLD, SHORT_FRAMES, DIMP_GATE_PX),
+    "super_dimp_simple": ("SuperDiMP-simple", "dimp_simple",
+                          SUPERDIMP_SIMPLE_NOT_FOUND_THRESHOLD, SHORT_FRAMES, RELATIVE_GATE_PX),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -453,25 +511,43 @@ def _count_syncs(fn):
                  if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def phase_dimp():
-    """DiMP-50 at full width on the card: initialize + 110 tracked frames."""
-    from pytracking_tpu_torch.parameter.dimp import dimp50
+def dimp_spec(name, device="cuda"):
+    """The parameter module's spec (seed 0) at its smoke not-found
+    threshold."""
+    label, package, threshold, _, _ = DIMP_FAMILY[name]
+    module = importlib.import_module(f"pytracking_tpu_torch.parameter.{package}.{name}")
+    spec = module.parameters(device=device, seed=0)
+    return dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, target_not_found_threshold=threshold))
+
+
+def phase_dimp(name="dimp50", tag="dimp", require_flags=()):
+    """A DiMP-family tracker at full width on the card: initialize + its
+    frames (110 or 40), then 10 more with the host synchronisations counted.
+    Fails unless every frame synchronises once and, for the names given in
+    `require_flags`, those flags and a refit occur."""
     from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker
 
+    label, _, _, n_frames, _ = DIMP_FAMILY[name]
     t0 = time.perf_counter()
-    spec = dimp50.parameters(device="cuda", seed=0)
-    spec = dataclasses.replace(spec, params=dataclasses.replace(
-        spec.params, target_not_found_threshold=DIMP_NOT_FOUND_THRESHOLD))
+    spec = dimp_spec(name)
     tracker = DiMPTracker(spec.params, spec.net, device="cuda")
     torch.cuda.synchronize()
     p = spec.params
-    print(f"dimp: DiMP-50 f32 built in {time.perf_counter() - t0:.1f} s, "
+    print(f"{tag}: {label} f32 built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f} M parameters; "
           f"sample {p.image_sample_size}, memory {p.sample_memory_size}, "
           f"{p.num_init_random_boxes}+1 boxes x {p.box_refinement_iter} steps, not-found "
           f"threshold {p.target_not_found_threshold}", flush=True)
+    if name != "dimp50":
+        print(f"{tag}: operating point: search area {p.search_area_scale}, border "
+              f"{p.border_mode} (max scale change {p.patch_max_scale_change}), box space "
+              f"{p.box_refinement_space} (step {p.box_refinement_step_length}), scores "
+              f"{p.score_preprocess}, refit {type(spec.net.classifier.filter_optimizer).__name__}"
+              f" ({p.net_opt_iter} at init, {p.net_opt_update_iter} every "
+              f"{p.train_skipping} frames, {p.net_opt_hn_iter} on a hard negative)", flush=True)
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    frames = [dimp_frame(bg, t) for t in range(N_FRAMES + 1)]
+    frames = [dimp_frame(bg, t) for t in range(n_frames + 1)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tracker.initialize(frames[0], DIMP_INIT)
@@ -488,11 +564,11 @@ def phase_dimp():
     torch.cuda.synchronize()
     for out in outs:
         check(len(out["target_bbox"]) == 4 and all(math.isfinite(v) for v in out["target_bbox"])
-              and math.isfinite(out["max_score"]), f"bad DiMP output {out}")
+              and math.isfinite(out["max_score"]), f"bad {label} output {out}")
     st = tracker.state
-    for name in ("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes", "iou_mod3",
-                 "iou_mod4"):
-        check(bool(torch.isfinite(getattr(st, name)).all()), f"non-finite DiMP state {name}")
+    for field in ("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes", "iou_mod3",
+                  "iou_mod4"):
+        check(bool(torch.isfinite(getattr(st, field)).all()), f"non-finite {label} state {field}")
 
     steady = np.asarray(frame_ms[WARMUP_FRAMES:])
     # every train_skipping-th frame is a periodic refit when its flag allows
@@ -500,25 +576,31 @@ def phase_dimp():
     # returns before it runs, the next frame waits for it at its readback
     refit = [i for i in range(len(iters)) if (i + 1) % p.train_skipping == 0]
     after = [frame_ms[i + 1] for i in refit if i + 1 < len(frame_ms)]
-    hist = {name: sum(o["flag"] == name for o in outs) for name in FLAG_NAMES}
-    print(f"dimp: init {init_ms:.1f} ms; track: {len(steady)} frames after {WARMUP_FRAMES} "
+    hist = {flag: sum(o["flag"] == flag for o in outs) for flag in FLAG_NAMES}
+    print(f"{tag}: init {init_ms:.1f} ms; track: {len(steady)} frames after {WARMUP_FRAMES} "
           f"warm-up, median {np.median(steady):.3f} ms/frame, p90 "
           f"{np.percentile(steady, 90):.3f}, min {steady.min():.3f}, max {steady.max():.3f}; "
           f"first frame {frame_ms[0]:.1f} ms", flush=True)
-    print(f"dimp: periodic-refit frames {[i + 1 for i in refit]} (optimiser iterations "
+    print(f"{tag}: periodic-refit frames {[i + 1 for i in refit]} (optimiser iterations "
           f"{[iters[i] for i in refit]}): {[round(frame_ms[i], 3) for i in refit]} ms, the "
           f"frames after them "
           f"{[round(x, 3) for x in after]} ms; optimiser iterations per frame "
           f"{dict(sorted(collections.Counter(iters).items()))}", flush=True)
-    print(f"dimp: flags {hist}; last box {outs[-1]['target_bbox']} score "
+    print(f"{tag}: flags {hist}; last box {outs[-1]['target_bbox']} score "
           f"{outs[-1]['max_score']:.4f}; memory holds {int(st.num_stored)} samples", flush=True)
+    for flag in require_flags:
+        check(hist[flag] > 0, f"{tag}: no {flag} frame in {n_frames}")
+    if require_flags:
+        check(max(iters) > 0, f"{tag}: no classifier refit in {n_frames} frames")
 
-    extra = [dimp_frame(bg, t) for t in range(N_FRAMES + 1, N_FRAMES + 11)]
+    extra = [dimp_frame(bg, t) for t in range(n_frames + 1, n_frames + 11)]
     syncs = [_count_syncs(lambda im=im: tracker.track(im))[1] for im in extra]
-    print(f"dimp: host synchronisations per frame over {len(extra)} more frames: "
+    print(f"{tag}: host synchronisations per frame over {len(extra)} more frames: "
           f"{[len(x) for x in syncs]} (target 1: the readback)", flush=True)
     for msg in sorted(set(m for x in syncs if len(x) > 1 for m in x)):
-        print(f"dimp:   sync: {msg[:300]}", flush=True)
+        print(f"{tag}:   sync: {msg[:300]}", flush=True)
+    check(all(len(x) == 1 for x in syncs), f"{tag}: not one host synchronisation per frame: "
+          f"{[len(x) for x in syncs]}")
     return spec, tracker
 
 
@@ -529,18 +611,16 @@ def _state_to(state, device):
         if isinstance(getattr(state, f.name), torch.Tensor)})
 
 
-def phase_dimp_gate(spec):
+def phase_dimp_gate(spec, tag="dimp_gate", n_frames=DIMP_GATE_FRAMES, limit_px=DIMP_GATE_PX):
     """Card against CPU, IEEE float32 on both, the card's draws replayed on
     the CPU tracker. Each frame starts the CPU tracker from the card's state
-    (copied), so the gate holds every step to DIMP_GATE_PX and equal flags
+    (copied), so the gate holds every step to `limit_px` and equal flags
     and replace indices: run free, the two drift apart through the random
     net's feedback loop (`scripts/dimp_check.py gate`: 1e-4 px after one
     frame, 15 px after ten), which would measure the loop, not the port."""
-    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
     from pytracking_tpu_torch.trackers.dimp import DiMPTracker
 
-    net_cpu = dimpnet50(device="cpu")
-    net_cpu.load_state_dict({k: v.cpu() for k, v in spec.net.state_dict().items()})
+    net_cpu = copy.deepcopy(spec.net).to("cpu")
     gpu = DiMPTracker(spec.params, spec.net, device="cuda")
     cpu = DiMPTracker(spec.params, net_cpu, device="cpu")
     draws = []
@@ -555,7 +635,7 @@ def phase_dimp_gate(spec):
     gpu._uniform, gpu._keep_mask = recording(gpu._uniform), recording(gpu._keep_mask)
     cpu._uniform = cpu._keep_mask = lambda *args: draws.pop(0)
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    frames = [dimp_frame(bg, t) for t in range(DIMP_GATE_FRAMES + 1)]
+    frames = [dimp_frame(bg, t) for t in range(n_frames + 1)]
     t0 = time.perf_counter()
     for tr in (gpu, cpu):
         tr.initialize(frames[0], DIMP_INIT)
@@ -566,21 +646,21 @@ def phase_dimp_gate(spec):
         cpu.state = _state_to(gpu.state, "cpu")
         og = gpu.track(im)
         oc = cpu.track(im)
-        check(og["flag"] == oc["flag"], f"dimp_gate: flags differ {og['flag']} {oc['flag']}")
+        check(og["flag"] == oc["flag"], f"{tag}: flags differ {og['flag']} {oc['flag']}")
         for name in ("prev_ind", "num_stored"):
             a, b = int(getattr(gpu.state, name)), int(getattr(cpu.state, name))
-            check(a == b, f"dimp_gate: {name} differs: card {a}, CPU {b}")
+            check(a == b, f"{tag}: {name} differs: card {a}, CPU {b}")
         px.append(float(np.abs(np.subtract(og["target_bbox"], oc["target_bbox"])).max()))
         flags.append(og["flag"])
         filt = gpu.state.target_filter.cpu()
         filt_rel.append(float((filt - cpu.state.target_filter).abs().max() / filt.abs().max()))
-    check(not draws, "dimp_gate: the CPU tracker did not consume every draw of the card's")
-    print(f"dimp_gate: init + {DIMP_GATE_FRAMES} frames card vs CPU in "
+    check(not draws, f"{tag}: the CPU tracker did not consume every draw of the card's")
+    print(f"{tag}: init + {n_frames} frames card vs CPU in "
           f"{time.perf_counter() - t0:.1f} s; init filter max rel diff {init_rel:.2e}; flags "
           f"equal {flags}; replace indices equal; box difference per frame "
-          f"{[f'{x:.1e}' for x in px]} px (<= {DIMP_GATE_PX}); filter max rel diff after each "
+          f"{[f'{x:.1e}' for x in px]} px (<= {limit_px}); filter max rel diff after each "
           f"frame {[f'{x:.1e}' for x in filt_rel]}", flush=True)
-    check(max(px) <= DIMP_GATE_PX, f"dimp_gate: boxes differ by {max(px)} px")
+    check(max(px) <= limit_px, f"{tag}: boxes differ by {max(px)} px")
 
 
 def main():
@@ -617,6 +697,24 @@ def main():
         t_next = dimp_tracker.state.frame_num
         phase_profile(dimp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                       tag="dimp_profile")
+        del dimp_tracker
+        family = {}
+        for name, tag, flags in (("super_dimp", "superdimp", ("normal", "hard_negative")),
+                                 ("prdimp50", "prdimp", ("hard_negative",)),
+                                 ("dimp18", "dimp18", ()),
+                                 ("super_dimp_simple", "superdimp_simple", ())):
+            phase = tag
+            family[tag] = phase_dimp(name, tag, require_flags=flags)
+            phase = f"{tag}_gate"
+            phase_dimp_gate(family[tag][0], tag=phase, n_frames=FAMILY_GATE_FRAMES,
+                            limit_px=DIMP_FAMILY[name][4])
+            if tag != "superdimp":
+                del family[tag]          # frees the card for the next net
+        phase = "superdimp_profile"
+        tracker = family["superdimp"][1]
+        t_next = tracker.state.frame_num
+        phase_profile(tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+                      tag="superdimp_profile")
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

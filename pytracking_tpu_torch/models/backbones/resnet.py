@@ -1,6 +1,6 @@
 """ResNet backbone with selectable intermediate outputs, NCHW (counterpart of
-pytracking_tpu/models/backbones/resnet.py: `Bottleneck`, `ResNet`,
-`resnet50`, `normalize_image`).
+pytracking_tpu/models/backbones/resnet.py: `BasicBlock`, `Bottleneck`,
+`ResNet`, `resnet18`, `resnet50`, `normalize_image`).
 
 Module names follow the JAX package (`layer3_2.conv2`, `downsample_bn`, ...),
 so `utils/convert_weights.py` maps one tree onto the other. `dtype` is the
@@ -35,6 +35,35 @@ class Conv2d(nn.Conv2d):
                         self.dilation, self.groups)
 
 
+class BasicBlock(nn.Module):
+    """Two 3x3 convolutions (ResNet-18/34)."""
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
+                 downsample: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=dilation,
+                            dilation=dilation, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, padding=dilation, dilation=dilation,
+                            bias=False, dtype=dtype)
+        self.bn2 = BatchNorm(planes)
+        if downsample:
+            self.downsample_conv = Conv2d(inplanes, planes, 1, stride=stride, bias=False,
+                                          dtype=dtype)
+            self.downsample_bn = BatchNorm(planes)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x
+        if self.downsample_conv is not None:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -67,14 +96,19 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Bottleneck ResNet returning a dict of the requested stage outputs
-    ('layer1'..'layer4'). Stages after the last requested output are built
-    (their weights are part of the model) but not run."""
+    """ResNet of `block` 'basic' or 'bottleneck' returning a dict of the
+    requested stage outputs ('layer1'..'layer4'). Stages after the last
+    requested output are built (their weights are part of the model) but not
+    run."""
 
     def __init__(self, layers: Tuple[int, ...] = (3, 4, 6, 3),
                  output_layers: Sequence[str] = ("layer2", "layer3"),
-                 base_width: int = 64, dtype: Optional[torch.dtype] = None):
+                 base_width: int = 64, dtype: Optional[torch.dtype] = None,
+                 block: str = "bottleneck"):
         super().__init__()
+        if block not in ("basic", "bottleneck"):
+            raise ValueError(f"unknown ResNet block {block!r}")
+        Block = BasicBlock if block == "basic" else Bottleneck
         self.output_layers = tuple(output_layers)
         self.dtype = dtype
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
@@ -86,12 +120,12 @@ class ResNet(nn.Module):
             names = []
             for b in range(layers[stage]):
                 stride = (1 if stage == 0 else 2) if b == 0 else 1
-                need_ds = b == 0 and (stride != 1 or in_ch != planes * Bottleneck.expansion)
+                need_ds = b == 0 and (stride != 1 or in_ch != planes * Block.expansion)
                 name = f"layer{stage + 1}_{b}"
-                self.add_module(name, Bottleneck(in_ch, planes, stride=stride,
-                                                 downsample=need_ds, dtype=dtype))
+                self.add_module(name, Block(in_ch, planes, stride=stride, downsample=need_ds,
+                                            dtype=dtype))
                 names.append(name)
-                in_ch = planes * Bottleneck.expansion
+                in_ch = planes * Block.expansion
             self.stage_blocks.append(names)
         stages = [f"layer{i}" for i in range(1, 5)]
         self.last_stage = max(stages.index(n) + 1 for n in self.output_layers)
@@ -108,6 +142,10 @@ class ResNet(nn.Module):
             if f"layer{stage + 1}" in self.output_layers:
                 outputs[f"layer{stage + 1}"] = x
         return {k: v.float() for k, v in outputs.items()}
+
+
+def resnet18(output_layers=("layer2", "layer3"), dtype=None) -> ResNet:
+    return ResNet(layers=(2, 2, 2, 2), output_layers=output_layers, dtype=dtype, block="basic")
 
 
 def resnet50(output_layers=("layer2", "layer3"), dtype=None) -> ResNet:

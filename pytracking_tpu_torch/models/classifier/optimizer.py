@@ -1,6 +1,6 @@
-"""DiMP's unrolled steepest-descent Gauss-Newton filter optimiser
-(counterpart of pytracking_tpu/models/classifier/optimizer.py
-`DiMPSteepestDescentGN`).
+"""DiMP's and PrDiMP's unrolled filter optimisers (counterpart of
+pytracking_tpu/models/classifier/optimizer.py `DiMPSteepestDescentGN`,
+`PrDiMPSteepestDescentNewton`).
 
 Shapes: weights (S, 1, C, fh, fw); feat (N, S, C, H, W); bb (N, S, 4) as
 (x, y, w, h) in image-patch coordinates; sample_weight (N, S) or None. The
@@ -90,6 +90,90 @@ class DiMPSteepestDescentGN(nn.Module):
             alpha_num = torch.sum(w_grad * w_grad, dim=(1, 2, 3, 4))               # (S,)
             alpha_den = torch.clamp(torch.sum(scores_grad ** 2, dim=(0, 2, 3, 4))
                                     + reg * alpha_num, min=1e-8)
+            alpha = alpha_num / alpha_den
+            weights = weights - (step_length * alpha)[:, None, None, None, None] * w_grad
+        return weights
+
+
+class PrDiMPSteepestDescentNewton(nn.Module):
+    """Steepest descent with a Newton step length on the KL divergence
+    between the softmax of the scores (with an optional constant logit
+    `softmax_reg`) and a Gaussian label density at the target centre. The
+    step length comes from the softmax Hessian-vector product gᵀHg; the
+    regulariser is filter_reg² clamped at min_filter_reg²."""
+
+    def __init__(self, num_iter: int = 1, feat_stride: int = 16,
+                 init_step_length: float = 1.0, init_filter_reg: float = 1e-2,
+                 gauss_sigma: float = 1.0, min_filter_reg: float = 1e-3,
+                 alpha_eps: float = 0.0, init_uni_weight: Optional[float] = None,
+                 normalize_label: bool = False, label_shrink: float = 0.0,
+                 softmax_reg: Optional[float] = None, label_threshold: float = 0.0):
+        super().__init__()
+        self.num_iter = num_iter
+        self.feat_stride = feat_stride
+        self.gauss_sigma = gauss_sigma
+        self.min_filter_reg = min_filter_reg
+        self.alpha_eps = alpha_eps
+        self.init_uni_weight = init_uni_weight
+        self.normalize_label = normalize_label
+        self.label_shrink = label_shrink
+        self.softmax_reg = softmax_reg
+        self.label_threshold = label_threshold
+        self.log_step_length = nn.Parameter(torch.full((1,), math.log(init_step_length)))
+        self.filter_reg = nn.Parameter(torch.full((1,), float(init_filter_reg)))
+
+    def get_label_density(self, center: torch.Tensor, output_sz) -> torch.Tensor:
+        """(B, 2) centres (y, x) in score cells -> (B, H, W) label densities."""
+        H, W = output_sz
+        dev = center.device
+        d0 = (torch.arange(H, dtype=torch.float32, device=dev)[None, :] - center[:, 0:1]) ** 2
+        d1 = (torch.arange(W, dtype=torch.float32, device=dev)[None, :] - center[:, 1:2]) ** 2
+        s2 = self.gauss_sigma ** 2
+        g0 = torch.exp(-d0 / (2 * s2)) / (2 * math.pi * s2)
+        g1 = torch.exp(-d1 / (2 * s2))
+        gauss = g0[:, :, None] * g1[:, None, :]
+        gauss = gauss * (gauss > self.label_threshold)
+        if self.normalize_label:
+            gauss = gauss / (gauss.sum(dim=(-2, -1), keepdim=True) + 1e-8)
+        uni = 0.0 if self.init_uni_weight is None else self.init_uni_weight
+        return (1.0 - self.label_shrink) * ((1.0 - uni) * gauss + uni / (H * W))
+
+    def forward(self, weights: torch.Tensor, feat: torch.Tensor, bb: torch.Tensor,
+                sample_weight: Optional[torch.Tensor] = None,
+                num_iter: Optional[int] = None) -> torch.Tensor:
+        num_iter = self.num_iter if num_iter is None else num_iter
+        N, S = feat.shape[:2]
+        fsz = (weights.shape[-2], weights.shape[-1])
+        out_sz = (feat.shape[-2] + (fsz[0] + 1) % 2, feat.shape[-1] + (fsz[1] + 1) % 2)
+
+        step_length = torch.exp(self.log_step_length)[0]
+        reg = torch.clamp(self.filter_reg * self.filter_reg, min=self.min_filter_reg ** 2)[0]
+
+        center = ((bb[..., :2] + bb[..., 2:] / 2) / self.feat_stride).reshape(-1, 2).flip(-1)
+        center = torch.stack([center[:, 0] - (fsz[0] % 2) / 2.0,
+                              center[:, 1] - (fsz[1] % 2) / 2.0], dim=-1)
+        label = self.get_label_density(center, out_sz).reshape((N, S, 1) + out_sz)
+        if sample_weight is None:
+            sample_weight = torch.full((N, S, 1, 1, 1), 1.0 / N, device=feat.device)
+        else:
+            sample_weight = sample_weight.reshape(N, S, 1, 1, 1)
+        sw_ns = sample_weight.reshape(N, S)
+
+        for _ in range(num_iter):
+            scores = apply_filter(feat, weights)                          # (N, S, 1, H, W)
+            sm = act.softmax_reg(scores.reshape(N, S, -1), dim=2,
+                                 reg=self.softmax_reg).reshape(scores.shape)
+            res = sample_weight * (sm - label)
+            w_grad = apply_feat_transpose(feat, res, fsz) + reg * weights
+
+            scores_grad = apply_filter(feat, w_grad)
+            sm_scores_grad = sm * scores_grad
+            hes_scores_grad = sm_scores_grad - sm * sm_scores_grad.sum(dim=(-2, -1), keepdim=True)
+            ghg = torch.clamp((scores_grad * hes_scores_grad).reshape(N, S, -1).sum(-1), min=0.0)
+            ghg = (sw_ns * ghg).sum(dim=0)                                # (S,)
+
+            alpha_num = torch.sum(w_grad * w_grad, dim=(1, 2, 3, 4))
+            alpha_den = torch.clamp(ghg + (reg + self.alpha_eps) * alpha_num, min=1e-8)
             alpha = alpha_num / alpha_den
             weights = weights - (step_length * alpha)[:, None, None, None, None] * w_grad
         return weights

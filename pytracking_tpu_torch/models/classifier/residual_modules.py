@@ -1,0 +1,74 @@
+"""Residual-module filter optimiser of DiMP-simple (counterpart of
+pytracking_tpu/models/classifier/residual_modules.py `GNSteepestDescentDiMP`).
+
+DiMP's learned label map, target mask and spatial weight (linear in a
+binned distance map of the target centre) define the residual; the generic
+Gauss-Newton steepest descent (`models/meta/steepestdescent.py`) minimises
+it with Jacobian products by `torch.func`. The interface is
+`DiMPSteepestDescentGN`'s, so `LinearFilter` and the tracker take either.
+
+Shapes: weights (S, 1, C, fh, fw); feat (N, S, C, H, W); bb (N, S, 4) as
+(x, y, w, h); sample_weight (N, S) or None.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from pytracking_tpu_torch.models.meta.steepestdescent import gn_steepest_descent
+from pytracking_tpu_torch.ops import activation as act
+from pytracking_tpu_torch.ops.distance import distance_map
+from pytracking_tpu_torch.ops.filter import apply_filter
+
+
+class GNSteepestDescentDiMP(nn.Module):
+    """The residual: sample weight x (bent_identity(scores, mask) - label),
+    and filter_reg x the filter. The mask passes through a sigmoid."""
+
+    def __init__(self, num_iter: int = 1, feat_stride: int = 16,
+                 init_filter_reg: float = 1e-2, init_gauss_sigma: float = 1.0,
+                 num_dist_bins: int = 5, bin_displacement: float = 1.0,
+                 mask_init_factor: float = 4.0, act_param: Optional[float] = None):
+        super().__init__()
+        self.num_iter = num_iter
+        self.feat_stride = feat_stride
+        self.num_dist_bins = num_dist_bins
+        self.bin_displacement = bin_displacement
+        self.act_param = act_param or 1.0
+
+        d = torch.arange(num_dist_bins, dtype=torch.float32) * bin_displacement
+        init_gauss = torch.exp(-0.5 * (d / init_gauss_sigma) ** 2)
+        self.filter_reg = nn.Parameter(torch.full((1,), float(init_filter_reg)))
+        self.label_map_w = nn.Parameter(init_gauss - init_gauss.min())
+        self.target_mask_w = nn.Parameter(mask_init_factor * torch.tanh(2.0 - d))
+        self.spatial_weight_w = nn.Parameter(torch.ones(num_dist_bins))
+
+    def forward(self, weights: torch.Tensor, feat: torch.Tensor, bb: torch.Tensor,
+                sample_weight: Optional[torch.Tensor] = None,
+                num_iter: Optional[int] = None) -> torch.Tensor:
+        num_iter = self.num_iter if num_iter is None else num_iter
+        N, S = feat.shape[:2]
+        out_sz = (feat.shape[-2] + (weights.shape[-2] + 1) % 2,
+                  feat.shape[-1] + (weights.shape[-1] + 1) % 2)
+
+        center = ((bb[..., :2] + bb[..., 2:] / 2) / self.feat_stride).reshape(-1, 2).flip(-1)
+        dmap = distance_map(center, out_sz, self.num_dist_bins, self.bin_displacement)
+        shape_ns = (N, S, 1) + out_sz
+        label = (dmap @ self.label_map_w).reshape(shape_ns)
+        mask = torch.sigmoid(dmap @ self.target_mask_w).reshape(shape_ns)
+        sw = (dmap @ self.spatial_weight_w).reshape(shape_ns)
+        if sample_weight is None:
+            sample_weight = math.sqrt(1.0 / N) * sw
+        else:
+            sample_weight = torch.sqrt(sample_weight).reshape(N, S, 1, 1, 1) * sw
+        reg = self.filter_reg[0]
+
+        def residual(w):
+            scores = act.bent_ident_par(apply_filter(feat, w), mask, self.act_param)
+            return {"data": sample_weight * (scores - label), "reg": reg * w.reshape(1, S, -1)}
+
+        return gn_steepest_descent(residual, weights, num_iter, residual_batch_dim=1)

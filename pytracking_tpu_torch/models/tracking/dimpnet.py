@@ -1,6 +1,7 @@
 """The DiMP network: backbone, meta-learned discriminative classifier and
 IoU-Net (counterpart of pytracking_tpu/models/tracking/dimpnet.py:
-`DiMPnet`, `dimpnet50`).
+`DiMPnet`, `dimpnet50`, `dimpnet18`, `klcedimpnet50`, `klcedimpnet18`,
+`dimpnet50_simple`).
 
 The tracker calls the parts one by one: `extract_backbone`,
 `extract_classification_feat`, `classifier.get_filter` / `classify` /
@@ -18,10 +19,13 @@ from torch import nn
 
 from pytracking_tpu_torch.models.backbones import resnet as backbones
 from pytracking_tpu_torch.models.bbreg.iou_net import AtomIoUNet
-from pytracking_tpu_torch.models.classifier.features import ResidualBottleneck
+from pytracking_tpu_torch.models.classifier.features import (ResidualBasicBlock,
+                                                             ResidualBottleneck)
 from pytracking_tpu_torch.models.classifier.initializer import FilterInitializerLinear
 from pytracking_tpu_torch.models.classifier.linear_filter import LinearFilter
-from pytracking_tpu_torch.models.classifier.optimizer import DiMPSteepestDescentGN
+from pytracking_tpu_torch.models.classifier.optimizer import (DiMPSteepestDescentGN,
+                                                              PrDiMPSteepestDescentNewton)
+from pytracking_tpu_torch.models.classifier.residual_modules import GNSteepestDescentDiMP
 from pytracking_tpu_torch.models.layers.blocks import BatchNorm, trunc_normal_fan_in
 from pytracking_tpu_torch.utils.device import resolve_device
 
@@ -50,13 +54,15 @@ class DiMPnet(nn.Module):
 @torch.no_grad()
 def init_weights(net: DiMPnet, generator: torch.Generator) -> DiMPnet:
     """Random weights drawn from `generator` with the JAX package's
-    initialisers: lecun-normal backbone convolutions, he-normal for every
-    other convolution and dense kernel, zero biases, identity BatchNorm.
-    The optimiser's parameters keep their structured initial values."""
+    initialisers: lecun-normal for the convolutions of residual blocks (the
+    backbone's and the classification feature's `block{i}`), he-normal for
+    every other convolution and dense kernel, zero biases, identity
+    BatchNorm. The optimisers' parameters keep their structured initial
+    values."""
     for name, m in net.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            trunc_normal_fan_in(m.weight, 1.0 if name.startswith("feature_extractor.") else 2.0,
-                                generator)
+            lecun = name.startswith(("feature_extractor.", "classifier.feature_extractor.block"))
+            trunc_normal_fan_in(m.weight, 1.0 if lecun else 2.0, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
@@ -67,6 +73,52 @@ def init_weights(net: DiMPnet, generator: torch.Generator) -> DiMPnet:
     return net
 
 
+FILTER_SIZE = 4
+
+
+def _dimpnet(backbone: nn.Module, clf_fe: nn.Module, optimizer: nn.Module, out_dim: int,
+             iou_input_dim, generator: Optional[torch.Generator], device) -> DiMPnet:
+    """A DiMPnet with a 4x4 filter, seeded weights, on `device`."""
+    device = resolve_device(device)
+    classifier = LinearFilter(FilterInitializerLinear(filter_size=FILTER_SIZE,
+                                                      feature_dim=out_dim),
+                              optimizer, clf_fe)
+    net = DiMPnet(backbone, classifier,
+                  AtomIoUNet(input_dim=iou_input_dim, pred_input_dim=(256, 256),
+                             pred_inter_dim=(256, 256)))
+    init_weights(net, generator or torch.Generator().manual_seed(0))
+    return net.to(device).eval()
+
+
+def _norm_scale(out_dim: int) -> float:
+    return math.sqrt(1.0 / (out_dim * FILTER_SIZE * FILTER_SIZE))
+
+
+def _dimp_gn():
+    """DiMP's optimiser: 5 iterations, step 0.9, regulariser 0.1, 100
+    distance bins of 0.1 cell."""
+    return DiMPSteepestDescentGN(num_iter=5, feat_stride=16, init_step_length=0.9,
+                                 init_filter_reg=0.1, init_gauss_sigma=0.9, num_dist_bins=100,
+                                 bin_displacement=0.1, mask_init_factor=3.0)
+
+
+def _prdimp_newton():
+    """PrDiMP's optimiser: 5 iterations, step 1, regulariser 0.05 (also the
+    least), label sigma 0.9 cells normalised, alpha_eps 0.05."""
+    return PrDiMPSteepestDescentNewton(num_iter=5, feat_stride=16, init_step_length=1.0,
+                                       init_filter_reg=0.05, min_filter_reg=0.05,
+                                       gauss_sigma=0.9, alpha_eps=0.05, normalize_label=True)
+
+
+def _r50_features():
+    return ResidualBottleneck(in_dim=1024, out_dim=512, norm_scale=_norm_scale(512))
+
+
+def _r18_features():
+    return ResidualBasicBlock(in_dim=256, out_dim=256, norm_scale=_norm_scale(256),
+                              feature_dim=256, num_blocks=1, final_conv=True)
+
+
 def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
     """DiMP-50 on `device`, weights drawn from `generator` (seed 0 when
     none is given): ResNet-50 layer2/layer3, a 3x3 conv 1024 -> 512 with
@@ -74,19 +126,39 @@ def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda") -> DiM
     optimiser (5 iterations by default, step 0.9, regulariser 0.1, 100
     distance bins of 0.1 cell), IoU-Net on (512, 1024) channels with
     256-wide heads."""
-    device = resolve_device(device)
-    filter_size, out_dim = 4, 512
-    clf_fe = ResidualBottleneck(in_dim=1024, out_dim=out_dim,
-                                norm_scale=math.sqrt(1.0 / (out_dim * filter_size * filter_size)))
-    optimizer = DiMPSteepestDescentGN(num_iter=5, feat_stride=16, init_step_length=0.9,
-                                      init_filter_reg=0.1, init_gauss_sigma=0.9,
-                                      num_dist_bins=100, bin_displacement=0.1,
-                                      mask_init_factor=3.0)
-    classifier = LinearFilter(FilterInitializerLinear(filter_size=filter_size,
-                                                      feature_dim=out_dim),
-                              optimizer, clf_fe)
-    net = DiMPnet(backbones.resnet50(output_layers=("layer2", "layer3")), classifier,
-                  AtomIoUNet(input_dim=(512, 1024), pred_input_dim=(256, 256),
-                             pred_inter_dim=(256, 256)))
-    init_weights(net, generator or torch.Generator().manual_seed(0))
-    return net.to(device).eval()
+    return _dimpnet(backbones.resnet50(), _r50_features(), _dimp_gn(), 512, (512, 1024),
+                    generator, device)
+
+
+def dimpnet18(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+    """DiMP-18: ResNet-18 layer2/layer3, one BasicBlock 256 -> 256 and a 3x3
+    conv 256 -> 256 with InstanceL2Norm, DiMP's optimiser, IoU-Net on
+    (128, 256) channels."""
+    return _dimpnet(backbones.resnet18(), _r18_features(), _dimp_gn(), 256, (128, 256),
+                    generator, device)
+
+
+def klcedimpnet50(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+    """PrDiMP-50: DiMP-50's backbone, feature and IoU-Net with the KL/Newton
+    optimiser."""
+    return _dimpnet(backbones.resnet50(), _r50_features(), _prdimp_newton(), 512, (512, 1024),
+                    generator, device)
+
+
+def klcedimpnet18(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+    """PrDiMP-18: DiMP-18's backbone, feature and IoU-Net with the KL/Newton
+    optimiser."""
+    return _dimpnet(backbones.resnet18(), _r18_features(), _prdimp_newton(), 256, (128, 256),
+                    generator, device)
+
+
+def dimpnet50_simple(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+    """DiMP-50-simple: DiMP-50's net with the generic Gauss-Newton optimiser
+    over DiMP's learned residual (5 iterations, regulariser 0.05, the
+    bent-identity score activation with parameter 0.05)."""
+    optimizer = GNSteepestDescentDiMP(num_iter=5, feat_stride=16, init_filter_reg=0.05,
+                                      init_gauss_sigma=0.9, num_dist_bins=100,
+                                      bin_displacement=0.1, mask_init_factor=3.0,
+                                      act_param=0.05)
+    return _dimpnet(backbones.resnet50(), _r50_features(), optimizer, 512, (512, 1024),
+                    generator, device)

@@ -1,6 +1,6 @@
 """Image patch extraction (counterpart of pytracking_tpu/ops/patch.py:
-`bilinear_sample`, `_resample_weights` and `sample_patch` in replicate
-mode).
+`bilinear_sample`, `_shrink_inside`, `_resample_weights` and `sample_patch`
+with its three border modes).
 
 The crop and resize is separable: two dense weight-matrix products
 P = W_y · im · W_xᵀ, each row a normalised triangle filter whose width grows
@@ -12,7 +12,7 @@ is the JAX package's: output pixel j of a patch centred at `pos` with extent
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,6 +38,23 @@ def bilinear_sample(im: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
             + dy * (1 - dx) * tap(y0 + 1, x0) + dy * dx * tap(y0 + 1, x0 + 1))
 
 
+def _shrink_inside(pos: torch.Tensor, sample_sz: torch.Tensor, im_sz: torch.Tensor,
+                   mode: str, max_scale_change) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 'inside' / 'inside_major' border modes: shrink the sample so that it
+    fits the image along all axes ('inside') or the major one
+    ('inside_major'), by at most `max_scale_change`, then shift it inside
+    along each axis where it fits (else centre it on the image)."""
+    shrink = sample_sz / im_sz
+    shrink = torch.max(shrink) if mode == "inside" else torch.min(shrink)
+    shrink = torch.clamp(shrink, min=1.0, max=max_scale_change or None)
+    sample_sz = sample_sz / shrink
+    tl = pos - sample_sz / 2
+    br = pos + sample_sz / 2
+    shift = torch.clamp(-tl - 0.5, min=0.0) - torch.clamp(br - (im_sz - 0.5), min=0.0)
+    pos = torch.where(sample_sz <= im_sz, pos + shift, im_sz / 2 - 0.5)
+    return pos, sample_sz
+
+
 def _resample_weights(src_coords: torch.Tensor, src_size: int,
                       spread: torch.Tensor) -> torch.Tensor:
     """(out, src) matrix: row i is a triangle filter of width `spread` (>= 1)
@@ -49,16 +66,28 @@ def _resample_weights(src_coords: torch.Tensor, src_size: int,
 
 
 def sample_patch(im: torch.Tensor, pos: torch.Tensor, sample_sz: torch.Tensor,
-                 output_sz: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+                 output_sz: Tuple[int, int], mode: str = "replicate",
+                 max_scale_change: Optional[float] = None,
+                 im_sz: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Patch of extent `sample_sz` (y, x) centred at `pos` (y, x) from
-    im (C, H, W), resampled to output_sz with replicate borders.
+    im (C, H, W), resampled to output_sz. Reads outside the image repeat the
+    border pixels. `mode` 'inside' / 'inside_major' first shrink and shift
+    the sample into the image of size `im_sz` (y, x) (default im's own).
 
-    Returns (patch (C, oh, ow) float32, coords (4,) = [tl_y, tl_x, br_y, br_x])."""
+    Returns (patch (C, oh, ow) float32, coords (4,) = [tl_y, tl_x, br_y, br_x],
+    the extent actually sampled)."""
     oh, ow = output_sz
     H, W = im.shape[-2], im.shape[-1]
     pos = pos.to(torch.float32)
     sample_sz = sample_sz.to(torch.float32)
     dev = im.device
+    if mode in ("inside", "inside_major"):
+        if im_sz is None:
+            im_sz = torch.tensor([H, W], dtype=torch.float32, device=dev)
+        pos, sample_sz = _shrink_inside(pos, sample_sz, im_sz.to(torch.float32), mode,
+                                        max_scale_change)
+    elif mode != "replicate":
+        raise ValueError(f"unknown sample_patch mode {mode!r}")
     j = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) / oh - 0.5
     i = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) / ow - 0.5
     ys = pos[0] + j * sample_sz[0]

@@ -1,9 +1,9 @@
 """DiMP-50 parameters (counterpart of pytracking_tpu/parameter/dimp/dimp50.py).
 
-No DiMP-50 checkpoint is in the repository, so the weights are drawn from a
-seeded torch.Generator (the meta-optimiser's parameters start at their
-structured values). The tracker runs in float32; its entry points pin IEEE
-float32 (no TF32).
+No DiMP checkpoint is in the repository, so the weights of every DiMP
+parameter module are drawn from a seeded torch.Generator (the
+meta-optimiser's parameters start at their structured values). The trackers
+run in float32; their entry points pin IEEE float32 (no TF32).
 """
 
 import torch
@@ -13,7 +13,10 @@ from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.dimp import DiMPParams
 
 
+def params() -> DiMPParams:
+    return DiMPParams()                    # its defaults are DiMP-50's
+
+
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    params = DiMPParams()                  # its defaults are DiMP-50's
     net = dimpnet50(generator=torch.Generator().manual_seed(seed), device=device)
-    return TrackerSpec(params=params, net=net)
+    return TrackerSpec(params=params(), net=net)

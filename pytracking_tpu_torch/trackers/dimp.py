@@ -1,6 +1,9 @@
 """DiMP tracker: meta-learned discriminative filter with IoU-Net box
 refinement (counterpart of pytracking_tpu/trackers/dimp.py `DiMPParams`,
-`DiMPTracker`, with the "default" box-refinement space).
+`DiMPTracker`). One class runs the whole DiMP family: DiMP-18/50,
+PrDiMP-18/50 (softmax scores), SuperDiMP and SuperDiMP-simple ('inside_major'
+crops, box refinement in the relative box space); the net brings the
+backbone and the filter optimiser.
 
 The per-frame state is fixed-shape tensors on the tracker's device: the
 target geometry, the filter, a ring buffer of `sample_memory_size`
@@ -12,6 +15,9 @@ flag in one copy, the frame's one synchronisation; the flag and the frame
 count then choose the classifier update on the host (no update, the
 hard-negative or the periodic iteration count), and the optimiser is
 enqueued after the readback, ahead of the next frame's classification.
+With `defer_classifier_update` the step never refits; the caller runs
+`update_classifier_deferred` (the periodic count, masked on the device by
+the last flag).
 
 The IoU-Net box gradient is `torch.autograd.grad` of the summed IoU in the
 proposal boxes, inside `torch.no_grad()` with grad enabled for that call;
@@ -33,8 +39,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from pytracking_tpu_torch.ops import activation as act
 from pytracking_tpu_torch.ops import augmentation as aug
 from pytracking_tpu_torch.ops import dcf
+from pytracking_tpu_torch.ops.bbox import rect_to_rel, rel_to_rect
 from pytracking_tpu_torch.ops.patch import sample_patch
 from pytracking_tpu_torch.trackers.base import BaseTracker, masked_slot_set, take
 from pytracking_tpu_torch.utils.device import ieee_float32
@@ -45,9 +53,16 @@ FLAG_NAMES = ["normal", "not_found", "hard_negative", "uncertain"]
 
 @dataclass(frozen=True)
 class DiMPParams:
-    """Static tracker configuration; the defaults are DiMP-50's."""
+    """Static tracker configuration: the JAX package's fields and defaults
+    (DiMP-50's). `iounet_augmentation` and `train_sample_interval` are
+    declared there and read nowhere; they are kept so that the parameter
+    modules map one to one."""
     image_sample_size: int = 18 * 16
     search_area_scale: float = 5.0
+    # a not_found frame reports [-1, -1, -1, -1] (long-term protocols)
+    output_not_found_box: bool = False
+    border_mode: str = "replicate"           # 'replicate' | 'inside' | 'inside_major'
+    patch_max_scale_change: Optional[float] = None
     feature_stride: int = 16
     kernel_size: int = 4
     # learning
@@ -55,12 +70,17 @@ class DiMPParams:
     learning_rate: float = 0.01
     init_samples_minimum_weight: float = 0.25
     train_skipping: int = 20
+    train_sample_interval: int = 1
+    update_classifier: bool = True
     net_opt_iter: int = 10
     net_opt_update_iter: int = 2
     net_opt_hn_iter: int = 1
     # detection
     window_output: bool = False
+    score_preprocess: str = "none"           # 'none' | 'exp' | 'softmax'
+    softmax_reg: Optional[float] = None
     # init augmentation
+    use_augmentation: bool = True
     augmentation: tuple = (("fliplr", True),
                            ("rotate", (10, -10, 45, -45)),
                            ("blur", ((3, 1), (1, 3), (2, 2))),
@@ -70,15 +90,21 @@ class DiMPParams:
     augmentation_expansion_factor: float = 2.0
     random_shift_factor: float = 1 / 3
     # advanced localisation
+    advanced_localization: bool = True
     target_not_found_threshold: float = 0.25
+    uncertain_threshold: float = -float("inf")
+    hard_sample_threshold: float = -float("inf")
     distractor_threshold: float = 0.8
     hard_negative_threshold: float = 0.5
     target_neighborhood_scale: float = 2.2
     displacement_scale: float = 0.8
     hard_negative_learning_rate: float = 0.02
+    update_scale_when_uncertain: bool = True
     perform_hn_without_windowing: bool = False
     target_inside_ratio: float = 0.2
     # IoU-Net
+    use_iou_net: bool = True
+    iounet_augmentation: bool = False
     iounet_k: int = 3
     num_init_random_boxes: int = 9
     box_jitter_pos: float = 0.1
@@ -87,6 +113,14 @@ class DiMPParams:
     box_refinement_iter: int = 5
     box_refinement_step_length: float = 1.0
     box_refinement_step_decay: float = 1.0
+    box_refinement_space: str = "default"     # 'default' | 'relative' (PrDiMP)
+    use_iounet_pos_for_learning: bool = True
+    # `track` leaves the filter as it is (the memory still updates); the
+    # caller runs `update_classifier_deferred` on the train_skipping cadence
+    defer_classifier_update: bool = False
+
+    def aug_dict(self) -> dict:
+        return dict(self.augmentation) if self.use_augmentation else {}
 
 
 @dataclass
@@ -171,7 +205,8 @@ class DiMPTracker(BaseTracker):
         self._generator = torch.Generator(device=self.device).manual_seed(self._seed)
         self._aug_rng = np.random.RandomState(self._seed)
         image_sz = self._f32([im.shape[1], im.shape[2]])
-        self.state = self._initialize_from_patch(self._init_crop(im, bbox), bbox, image_sz)
+        self.state = self._initialize_from_patch(self._init_crop(im, bbox, image_sz), bbox,
+                                                 image_sz)
         return {}
 
     @torch.no_grad()
@@ -184,8 +219,26 @@ class DiMPTracker(BaseTracker):
                           out["flag"][None].float()]).cpu().numpy()    # the one sync
         flag = int(host[5])
         self._update_classifier(flag)
-        return {"target_bbox": host[:4].tolist(), "max_score": float(host[4]),
-                "flag": FLAG_NAMES[flag]}
+        bbox = host[:4].tolist()
+        if self.params.output_not_found_box and flag == FLAG_NOT_FOUND:
+            bbox = [-1, -1, -1, -1]
+        return {"target_bbox": bbox, "max_score": float(host[4]), "flag": FLAG_NAMES[flag]}
+
+    @torch.no_grad()
+    @ieee_float32()
+    def update_classifier_deferred(self) -> None:
+        """The deferred classifier update (`defer_classifier_update`): one
+        optimiser pass over the memory with the periodic iteration count,
+        kept on the device only where the last flag allows an update. The
+        caller runs it on the train_skipping cadence."""
+        p = self.params
+        state = self.state
+        new_filter = self.net.classifier.filter_optimizer(
+            state.target_filter, state.mem_samples[:, None], state.mem_boxes[:, None],
+            sample_weight=state.mem_weights[:, None], num_iter=p.net_opt_update_iter)
+        ok = (state.flag != FLAG_NOT_FOUND) & (state.flag != FLAG_UNCERTAIN)
+        self.state = dataclasses.replace(
+            state, target_filter=torch.where(ok, new_filter, state.target_filter))
 
     # ---------------------------------------------------------------- initialize
 
@@ -197,14 +250,15 @@ class DiMPTracker(BaseTracker):
         target_scale = torch.sqrt(search_area) / torch.sqrt(torch.prod(self._img_sample_sz))
         return pos, target_sz, target_scale
 
-    def _init_crop(self, im, bbox) -> torch.Tensor:
+    def _init_crop(self, im, bbox, image_sz) -> torch.Tensor:
         """The expanded base patch the augmentations are cut from."""
         p = self.params
         pos, _, target_scale = self._target_geometry(bbox)
         exp_sz = int(round(p.image_sample_size * p.augmentation_expansion_factor))
         exp_sz += (exp_sz - p.image_sample_size) % 2
         base_patch, _ = sample_patch(im, torch.round(pos), (target_scale * exp_sz).expand(2),
-                                     (exp_sz, exp_sz))
+                                     (exp_sz, exp_sz), mode=p.border_mode,
+                                     max_scale_change=p.patch_max_scale_change, im_sz=image_sz)
         return base_patch
 
     def _initialize_from_patch(self, base_patch, bbox, image_sz) -> DiMPState:
@@ -216,7 +270,7 @@ class DiMPTracker(BaseTracker):
         base_target_sz = target_sz / target_scale
         init_sample_pos = torch.round(pos)
 
-        augs = dict(p.augmentation)
+        augs = p.aug_dict()
         transforms = aug.build_transforms({k: v for k, v in augs.items() if k != "dropout"},
                                           (s, s), p.random_shift_factor, self._aug_rng)
         im_patches = aug.apply_all(base_patch, transforms, (s, s))       # (T, 3, s, s)
@@ -274,7 +328,9 @@ class DiMPTracker(BaseTracker):
         centered_pos = state.pos + ((feat_sz + p.kernel_size) % 2) * \
             state.target_scale * self._img_sample_sz / (2 * feat_sz)
         s = p.image_sample_size
-        return sample_patch(im, centered_pos, state.target_scale * self._img_sample_sz, (s, s))
+        return sample_patch(im, centered_pos, state.target_scale * self._img_sample_sz, (s, s),
+                            mode=p.border_mode, max_scale_change=p.patch_max_scale_change,
+                            im_sz=state.image_sz)
 
     def _track_from_patch(self, state: DiMPState, patch, coords):
         p = self.params
@@ -288,23 +344,41 @@ class DiMPTracker(BaseTracker):
         backbone_feat = net.extract_backbone(patch[None])
         test_x = net.extract_classification_feat(backbone_feat)           # (1, C, Hf, Wf)
         scores = net.classifier.classify(state.target_filter, test_x)[0, 0]
+        if p.score_preprocess == "exp":
+            scores = torch.exp(scores)
+        elif p.score_preprocess == "softmax":
+            scores = act.softmax_reg(scores.reshape(-1), dim=-1,
+                                     reg=p.softmax_reg).reshape(scores.shape)
 
         translation_vec, flag, max_score = self._localize(state, scores, sample_pos,
                                                           sample_scale)
         new_pos = sample_pos + translation_vec
         found = flag != FLAG_NOT_FOUND
+        if not p.use_iou_net:
+            # without IoU-Net the crop scale becomes the target scale on each
+            # found frame, before the clamp below uses the new size
+            new_scale = torch.minimum(torch.maximum(sample_scale, state.min_scale),
+                                      state.max_scale)
+            state = dataclasses.replace(
+                state, target_scale=torch.where(found, new_scale, state.target_scale),
+                target_sz=torch.where(found, state.base_target_sz * new_scale, state.target_sz))
         inside_offset = (p.target_inside_ratio - 0.5) * state.target_sz
         clamped = torch.maximum(torch.minimum(new_pos, state.image_sz - inside_offset),
                                 inside_offset)
         state = dataclasses.replace(state, pos=torch.where(found, clamped, state.pos))
 
-        state = self._refine_target_box(state, backbone_feat, sample_pos, sample_scale, found)
+        if p.use_iou_net:
+            update_scale = True if p.update_scale_when_uncertain else flag != FLAG_UNCERTAIN
+            state = self._refine_target_box(state, backbone_feat, sample_pos, sample_scale,
+                                            found, update_scale)
 
-        update_flag = (flag != FLAG_NOT_FOUND) & (flag != FLAG_UNCERTAIN)
-        target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
-                                     img_sample_sz)
-        lr = torch.where(flag == FLAG_HARD_NEG, p.hard_negative_learning_rate, p.learning_rate)
-        state = self._update_memory_masked(state, test_x[0], target_box, lr, update_flag)
+        if p.update_classifier:
+            update_flag = (flag != FLAG_NOT_FOUND) & (flag != FLAG_UNCERTAIN)
+            target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
+                                         img_sample_sz)
+            lr = torch.where(flag == FLAG_HARD_NEG, p.hard_negative_learning_rate,
+                             p.learning_rate)
+            state = self._update_memory_masked(state, test_x[0], target_box, lr, update_flag)
 
         state = dataclasses.replace(state, flag=flag, max_score=max_score)
         bbox = torch.cat([state.pos.flip(-1) - (state.target_sz.flip(-1) - 1) / 2,
@@ -314,8 +388,9 @@ class DiMPTracker(BaseTracker):
     # ---------------------------------------------------------------- localisation
 
     def _localize(self, state: DiMPState, scores, sample_pos, sample_scale):
-        """Advanced localisation with distractor analysis on the (Hs, Ws)
-        score map: (translation (2,), flag () int32, max score ())."""
+        """Localisation on the (Hs, Ws) score map, with the distractor
+        analysis when `advanced_localization`: (translation (2,), flag ()
+        int32, max score ())."""
         p = self.params
         img_sample_sz = self._img_sample_sz
         output_sz = float(self._feature_sz)     # score cells stride the feature grid
@@ -331,6 +406,9 @@ class DiMPTracker(BaseTracker):
         max_disp1 = max_disp1.float()
         target_disp1 = max_disp1 - self._score_center
         translation_vec1 = target_disp1 * disp_to_img
+        if not p.advanced_localization:
+            return (translation_vec1, torch.zeros((), dtype=torch.int32, device=scores.device),
+                    max_score1)
 
         # mask the target neighbourhood and find the second peak
         target_neigh_sz = p.target_neighborhood_scale * (state.target_sz / sample_scale) * \
@@ -364,7 +442,9 @@ class DiMPTracker(BaseTracker):
         trans = torch.where(hn2, translation_vec2, trans)
         flag = torch.where(hn1, FLAG_HARD_NEG, flag)
         trans = torch.where(hn1, translation_vec1, trans)
-        # the not-found threshold dominates
+        # the score thresholds dominate, the not-found one most
+        flag = torch.where(max_score1 < p.hard_sample_threshold, FLAG_HARD_NEG, flag)
+        flag = torch.where(max_score1 < p.uncertain_threshold, FLAG_UNCERTAIN, flag)
         not_found = max_score1 < p.target_not_found_threshold
         flag = torch.where(not_found, FLAG_NOT_FOUND, flag)
         trans = torch.where(not_found, translation_vec1, trans)
@@ -373,9 +453,11 @@ class DiMPTracker(BaseTracker):
     # ---------------------------------------------------------------- box refinement
 
     def _refine_target_box(self, state: DiMPState, backbone_feat, sample_pos, sample_scale,
-                           found) -> DiMPState:
-        """IoU-Net gradient ascent on the current box and jittered copies;
-        the mean of the best `iounet_k` valid boxes becomes the target."""
+                           found, update_scale=True) -> DiMPState:
+        """IoU-Net gradient ascent on the current box and jittered copies,
+        in the box space (the step scaled by the box size) or the relative
+        space (cx/σ, cy/σ, log w, log h), σ the current box's size; the mean
+        of the best `iounet_k` valid boxes becomes the target."""
         p = self.params
         net = self.net
         img_sample_sz = self._img_sample_sz
@@ -396,12 +478,23 @@ class DiMPTracker(BaseTracker):
             return net.bb_regressor.predict_iou(modulation, iou_feat, b[None])[0]
 
         step = p.box_refinement_step_length
-        for _ in range(p.box_refinement_iter):
-            with torch.enable_grad():
-                b = boxes.detach().requires_grad_(True)
-                grad, = torch.autograd.grad(iou_fn(b).sum(), b)
-            boxes = boxes + step * grad * boxes[:, 2:].repeat(1, 2)
-            step = step * p.box_refinement_step_decay
+        if p.box_refinement_space == "relative":
+            sz_norm = boxes[0:1, 2:]
+            boxes_rel = rect_to_rel(boxes, sz_norm)
+            for _ in range(p.box_refinement_iter):
+                with torch.enable_grad():
+                    b = boxes_rel.detach().requires_grad_(True)
+                    grad, = torch.autograd.grad(iou_fn(rel_to_rect(b, sz_norm)).sum(), b)
+                boxes_rel = boxes_rel + step * grad
+                step = step * p.box_refinement_step_decay
+            boxes = rel_to_rect(boxes_rel, sz_norm)
+        else:
+            for _ in range(p.box_refinement_iter):
+                with torch.enable_grad():
+                    b = boxes.detach().requires_grad_(True)
+                    grad, = torch.autograd.grad(iou_fn(b).sum(), b)
+                boxes = boxes + step * grad * boxes[:, 2:].repeat(1, 2)
+                step = step * p.box_refinement_step_decay
         iou = iou_fn(boxes)
 
         # drop degenerate aspect ratios by -inf
@@ -426,9 +519,9 @@ class DiMPTracker(BaseTracker):
         apply = found & valid.any()
         new_scale = torch.minimum(torch.maximum(new_scale, state.min_scale), state.max_scale)
         return dataclasses.replace(
-            state, pos=torch.where(apply, new_pos, state.pos),
+            state, pos=torch.where(apply & p.use_iounet_pos_for_learning, new_pos, state.pos),
             target_sz=torch.where(apply, new_target_sz, state.target_sz),
-            target_scale=torch.where(apply, new_scale, state.target_scale))
+            target_scale=torch.where(apply & update_scale, new_scale, state.target_scale))
 
     # ---------------------------------------------------------------- memory
 
@@ -485,7 +578,10 @@ class DiMPTracker(BaseTracker):
     def _update_classifier(self, flag: int) -> None:
         """Refit the filter over the memory, enqueued after the frame's
         readback; the next frame's classification follows it in the
-        stream."""
+        stream. None with `update_classifier` off or deferred."""
+        p = self.params
+        if not p.update_classifier or p.defer_classifier_update:
+            return
         state = self.state
         num_iter = self._classifier_iterations(flag, state.frame_num)
         if num_iter == 0:
@@ -494,3 +590,7 @@ class DiMPTracker(BaseTracker):
             state.target_filter, state.mem_samples[:, None], state.mem_boxes[:, None],
             sample_weight=state.mem_weights[:, None], num_iter=num_iter)
         self.state = dataclasses.replace(state, target_filter=new_filter)
+
+
+def get_tracker_class():
+    return DiMPTracker

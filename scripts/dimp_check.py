@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Checks of the seeded DiMP-50 on chip_smoke.py's synthetic sequence, on
-the card.
+"""Checks of a seeded DiMP-family tracker on chip_smoke.py's synthetic
+sequence, on the card.
 
-    python3 scripts/dimp_check.py scores [threshold ...]
-    python3 scripts/dimp_check.py gate [frames]
-    python3 scripts/dimp_check.py stages [frames]
+    python3 scripts/dimp_check.py scores [param] [threshold ...]
+    python3 scripts/dimp_check.py gate [param] [frames]
+    python3 scripts/dimp_check.py stages [param] [frames]
 
-scores: for each not-found threshold (DiMP-50's 0.25 first), `initialize` +
-110 frames of `DiMPTracker` with `dimp50.parameters(device="cuda", seed=0)`
-and that threshold; prints the first and second score peaks of the
-localisation (min / median / max over the frames), the flag histogram and
-the optimiser iterations per frame. Random weights put the peaks far below
-a trained net's; this shows which threshold lets the seeded net find the
-target, so that the memory update and the classifier refits run.
+`param` is a parameter module of chip_smoke.DIMP_FAMILY (dimp50, super_dimp,
+prdimp50, dimp18, super_dimp_simple; default dimp50), built with seed 0;
+gate and stages run it at chip_smoke's not-found threshold for it.
+
+scores: for each not-found threshold (the module's own first), `initialize`
++ the phase's frames (110 or 40) of `DiMPTracker`; prints the first and
+second score peaks of the localisation (min / median / max over the
+frames), the flag histogram and the optimiser iterations per frame. Random
+weights put the peaks far below a trained net's; this shows which threshold
+lets the seeded net find the target, so that the memory update and the
+classifier refits run.
 
 gate: chip_smoke.py's dimp_gate frame by frame (card against CPU, IEEE
 float32, the card's draws replayed on the CPU): per frame the flags, the
@@ -27,8 +31,10 @@ record_function, over a few frames after chip_smoke.py's 110.
 """
 
 import collections
+import copy
 import dataclasses
 import functools
+import importlib
 import os
 import sys
 
@@ -39,13 +45,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from pytracking_tpu_torch.ops import dcf  # noqa: E402
-from pytracking_tpu_torch.parameter.dimp import dimp50  # noqa: E402
 from pytracking_tpu_torch.trackers import dimp as t_dimp  # noqa: E402
 
 
+def _param_name(args):
+    """(parameter module, the remaining arguments)."""
+    if args and args[0] in chip_smoke.DIMP_FAMILY:
+        return args[0], args[1:]
+    return "dimp50", args
+
+
 def scores(args):
-    thresholds = [0.25] + [float(x) for x in args]
-    spec = dimp50.parameters(device="cuda", seed=0)
+    name, args = _param_name(args)
+    spec = chip_smoke.dimp_spec(name)
+    module = importlib.import_module(
+        f"pytracking_tpu_torch.parameter.{chip_smoke.DIMP_FAMILY[name][1]}.{name}")
+    thresholds = [module.params().target_not_found_threshold] + [float(x) for x in args]
+    n_frames = chip_smoke.DIMP_FAMILY[name][3]
     peaks = []
     max2d = dcf.max2d
 
@@ -56,7 +72,7 @@ def scores(args):
 
     t_dimp.dcf.max2d = recording
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    frames = [chip_smoke.dimp_frame(bg, t) for t in range(chip_smoke.N_FRAMES + 1)]
+    frames = [chip_smoke.dimp_frame(bg, t) for t in range(n_frames + 1)]
     for thr in thresholds:
         params = dataclasses.replace(spec.params, target_not_found_threshold=thr)
         tracker = t_dimp.DiMPTracker(params, spec.net, device="cuda")
@@ -71,7 +87,7 @@ def scores(args):
         p = torch.stack(peaks).cpu().numpy().reshape(-1, 2)        # (frames, [max1, max2])
         stats = {name: (float(v.min()), float(np.median(v)), float(v.max()))
                  for name, v in (("max1", p[:, 0]), ("max2", p[:, 1]))}
-        print(f"threshold {thr}: peaks (min, median, max) "
+        print(f"{name} threshold {thr}: peaks (min, median, max) "
               + ", ".join(f"{k} ({a:.4f}, {b:.4f}, {c:.4f})" for k, (a, b, c) in stats.items())
               + f"; flags {dict(collections.Counter(o['flag'] for o in outs))}; optimiser "
               f"iterations {dict(sorted(collections.Counter(iters).items()))}; last box "
@@ -79,14 +95,11 @@ def scores(args):
 
 
 def gate(args):
-    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
-
+    name, args = _param_name(args)
     n = int(args[0]) if args else chip_smoke.DIMP_GATE_FRAMES
-    spec = dimp50.parameters(device="cuda", seed=0)
-    params = dataclasses.replace(spec.params,
-                                 target_not_found_threshold=chip_smoke.DIMP_NOT_FOUND_THRESHOLD)
-    net_cpu = dimpnet50(device="cpu")
-    net_cpu.load_state_dict({k: v.cpu() for k, v in spec.net.state_dict().items()})
+    spec = chip_smoke.dimp_spec(name)
+    params = spec.params
+    net_cpu = copy.deepcopy(spec.net).to("cpu")
     trackers = {"card": t_dimp.DiMPTracker(params, spec.net, device="cuda"),
                 "cpu": t_dimp.DiMPTracker(params, net_cpu, device="cpu")}
     draws, ious = [], {"card": [], "cpu": []}
@@ -133,7 +146,7 @@ STAGES = {  # label: (object path from the tracker, method)
     "classification feature": ("net", "extract_classification_feat"),
     "classification scores": ("net.classifier", "classify"),
     "localisation": ("", "_localize"),
-    "box refinement (IoU features, 5 ascent steps)": ("", "_refine_target_box"),
+    "box refinement (IoU features, ascent steps)": ("", "_refine_target_box"),
     "memory update": ("", "_update_memory_masked"),
     "classifier refit": ("", "_update_classifier"),
 }
@@ -143,11 +156,11 @@ def stages(args):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    param, args = _param_name(args)
     n = int(args[0]) if args else 5
-    spec = dimp50.parameters(device="cuda", seed=0)
-    params = dataclasses.replace(spec.params,
-                                 target_not_found_threshold=chip_smoke.DIMP_NOT_FOUND_THRESHOLD)
-    tracker = t_dimp.DiMPTracker(params, spec.net, device="cuda")
+    spec = chip_smoke.dimp_spec(param)
+    n_frames = chip_smoke.DIMP_FAMILY[param][3]
+    tracker = t_dimp.DiMPTracker(spec.params, spec.net, device="cuda")
     for label, (path, name) in STAGES.items():
         obj = functools.reduce(getattr, path.split("."), tracker) if path else tracker
         fn = getattr(obj, name)
@@ -158,14 +171,13 @@ def stages(args):
 
         setattr(obj, name, marked)
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    total = chip_smoke.N_FRAMES + n
-    frames = [chip_smoke.dimp_frame(bg, t) for t in range(total + 1)]
+    frames = [chip_smoke.dimp_frame(bg, t) for t in range(n_frames + n + 1)]
     tracker.initialize(frames[0], chip_smoke.DIMP_INIT)
-    for im in frames[1:chip_smoke.N_FRAMES + 1]:
+    for im in frames[1:n_frames + 1]:
         tracker.track(im)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for im in frames[chip_smoke.N_FRAMES + 1:]:
+        for im in frames[n_frames + 1:]:
             with record_function("frame"):
                 tracker.track(im)
     # a kernel belongs to the stages whose host span holds its launch, on
@@ -186,7 +198,8 @@ def stages(args):
                 rows[span.name][1] += len(e.kernels)
                 rows[span.name][2] += sum(k.duration for k in e.kernels)
     fh, fk, fd = rows["frame"]
-    print(f"stages over {n} frames (per frame, under the profiler): host {fh / n / 1e3:.3f} ms, "
+    print(f"{param} stages over {n} frames (per frame, under the profiler): host "
+          f"{fh / n / 1e3:.3f} ms, "
           f"{fk / n:.0f} kernels, device {fd / n / 1e3:.3f} ms", flush=True)
     rest = [fh - sum(rows[x][0] for x in STAGES), fk - sum(rows[x][1] for x in STAGES),
             fd - sum(rows[x][2] for x in STAGES)]

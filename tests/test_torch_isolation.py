@@ -1,9 +1,11 @@
-"""The port stands alone: pytracking_tpu_torch and chip_smoke.py import no
-JAX, no flax and nothing of the JAX package, and the port's entry points
+"""The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
+own scripts (scripts/dimp_check.py, scripts/k1_check.py) import no JAX, no
+flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -14,6 +16,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
+PORT_SCRIPTS = ("dimp_check.py", "k1_check.py")
 
 
 def _port_sources():
@@ -22,6 +25,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    for script in PORT_SCRIPTS:
+        yield os.path.join(REPO, "scripts", script)
 
 
 def _port_modules():
@@ -72,6 +77,7 @@ def test_every_port_module_imports_with_jax_blocked():
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.models.tracking import dimpnet
     from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
     from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_resnet50
     from pytracking_tpu_torch.parameter.dimp import dimp50
@@ -96,6 +102,14 @@ def test_entry_points_raise_without_cuda():
         dimpnet50()
     with pytest.raises(RuntimeError, match="CUDA"):
         DiMPTracker(DiMPParams(), torch.nn.Linear(1, 1))
+    for name in ("dimpnet18", "klcedimpnet50", "klcedimpnet18", "dimpnet50_simple"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            getattr(dimpnet, name)()
+    for module in ("dimp.dimp18", "dimp.prdimp18", "dimp.prdimp50", "dimp.super_dimp",
+                   "dimp.dimp50_vot18", "dimp.dimp50_vot19", "dimp.dimp18_vot18",
+                   "dimp.prdimp50_vot18", "dimp_simple.super_dimp_simple"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            importlib.import_module(f"pytracking_tpu_torch.parameter.{module}").parameters()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
