@@ -42,7 +42,25 @@ Phases (any failure exits non-zero and prints no result line):
               generic Gauss-Newton refit by torch.func) over 40; each at its
               own not-found threshold (*_NOT_FOUND_THRESHOLD);
  11. *_gate   `dimp_gate` for each of the four over 5 frames;
- 12. superdimp_profile  device kernel time by kernel over 3 SuperDiMP frames.
+ 12. superdimp_profile  device kernel time by kernel over 3 SuperDiMP frames;
+ 13. tomp     ToMP-50 in IEEE float32 at full width (288x288, d = 512; no
+              Pallas kernel on this path: head dim 64, plain attention) on
+              the DiMP sequence, 110 frames, at the thresholds in TOMP;
+              frame times, flags, one host synchronisation per frame, the
+              encoder's key padding against the stored slots, at least one
+              memory update into slot 1 and one not_found frame (the
+              search-area rescaling);
+ 14. tomp_gate  card against CPU, single steps from the card's state, as
+              `dimp_gate`, over 5 frames;
+ 15. tomp_bf16_gate  ToMP-50 bf16 (weights rounded through bf16) against
+              float32 on the card, at the TaMOs gate's limits;
+ 16. tomp_profile  device kernel time by kernel over 3 ToMP-50 frames;
+ 17. tomp101  ToMP-101 as `tomp` over 40 frames (its seeded peaks allow no
+              not_found frame after a stored one: see TOMP101_*);
+ 18. tamos_swin  TaMOs-SwinBase in bf16 (Swin float32) as `main`: 110
+              frames, two objects, the kernel 6 times per frame on the
+              timed key mask; then its bf16 `gate` (tamos_swin_gate) and its
+              profile (tamos_swin_profile).
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -121,6 +139,36 @@ DIMP_GATE_PX = 0.05
 # 1e-4 relative in the gradient stays 1e-4 of the distance travelled there
 # too: below DiMP-50's 0.01 px. The same 0.05 px keeps 5x room or more.
 RELATIVE_GATE_PX = 0.05
+# ToMP: the modules' not-found threshold 0.25, memory confidence 0.9
+# (conf_ths) and distractor threshold 0.8 are for a trained net's scores.
+# The seeded nets' raw peaks on this sequence (`scripts/tomp_check.py scores
+# <param> [threshold:conf:distractor ...]`; NVIDIA H100 80GB HBM3, 700 W):
+# ToMP-50 at its own thresholds: max1 12.0795-12.0955, max2 within 2% of it
+# (11.8416-11.8514), so every frame is uncertain (a distractor) and nothing
+# is stored. At a distractor threshold of 0.99 frame 1 (12.0836) is stored,
+# frame 2 (16.9812) too, and then the peaks fall to 9.2992-9.3153: a
+# not-found threshold of 12.0 stores frames 1-2 (normal, hard negative) and
+# loses the target on the other 108, where the search area is rescaled.
+TOMP_NOT_FOUND_THRESHOLD = 12.0
+TOMP_CONF_THS = 0.9
+TOMP_DISTRACTOR_THRESHOLD = 0.99
+# ToMP-101 at its own thresholds: frame 1 uncertain (10.3629), frame 2 a
+# hard negative (10.3552) stored in slot 1, then 39 hard negatives at
+# 17.4997-20.4501, each stored. With slot 1 filled every peak (17.5-20.5) is
+# above every peak with it empty (10.355-10.375, at any distractor threshold
+# tried: 0.8, 0.99), so no not-found threshold both stores a frame and loses
+# the target later: the phase keeps the module's thresholds and requires
+# the slot-1 updates only; ToMP-50 runs the not_found branch.
+TOMP101_NOT_FOUND_THRESHOLD = 0.25
+TOMP101_CONF_THS = 0.9
+TOMP101_DISTRACTOR_THRESHOLD = 0.8
+TOMP_GATE_FRAMES = 5
+# parameter module: (label, not-found threshold, conf_ths, distractor threshold, frames,
+# whether a not_found frame is required)
+TOMP = {"tomp50": ("ToMP-50", TOMP_NOT_FOUND_THRESHOLD, TOMP_CONF_THS,
+                   TOMP_DISTRACTOR_THRESHOLD, N_FRAMES, True),
+        "tomp101": ("ToMP-101", TOMP101_NOT_FOUND_THRESHOLD, TOMP101_CONF_THS,
+                    TOMP101_DISTRACTOR_THRESHOLD, SHORT_FRAMES, False)}
 # parameter module: (label, package, not-found threshold, frames, gate px)
 DIMP_FAMILY = {
     "dimp50": ("DiMP-50", "dimp", DIMP_NOT_FOUND_THRESHOLD, N_FRAMES, DIMP_GATE_PX),
@@ -344,18 +392,19 @@ def synthetic_frame(rng_bg, t, H=480, W=640):
     return im
 
 
-def phase_main(main_keep):
-    """Drives the tracker; checks that every encoder pass saw `main_keep`,
-    the mask the kernel phase timed and bound the kernel on."""
+def phase_main(main_keep, module="tamos_resnet50", tag="main", label="TaMOs-R50"):
+    """Drives a TaMOs tracker in bf16 (the parameter module `module`);
+    checks that every encoder pass saw `main_keep`, the mask the kernel
+    phase timed and bound the kernel on."""
     from pytracking_tpu_torch.ops import fused_mha
-    from pytracking_tpu_torch.parameter.tamos import tamos_resnet50
     from pytracking_tpu_torch.trackers.tamos import TaMOsTracker
 
     t0 = time.perf_counter()
-    spec = tamos_resnet50.parameters(device="cuda", dtype=torch.bfloat16, seed=0)
+    spec = importlib.import_module(f"pytracking_tpu_torch.parameter.tamos.{module}").parameters(
+        device="cuda", dtype=torch.bfloat16, seed=0)
     tracker = TaMOsTracker(spec.params, spec.net, device="cuda")
     torch.cuda.synchronize()
-    print(f"main: TaMOs-R50 bf16 built in {time.perf_counter() - t0:.1f} s, "
+    print(f"{tag}: {label} bf16 built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in spec.net.parameters()) / 1e6:.1f} M parameters",
           flush=True)
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
@@ -381,7 +430,7 @@ def phase_main(main_keep):
     hook.remove()
 
     same = all(bool(torch.equal(~m, main_keep)) for m in pad_masks)
-    print(f"main: {len(pad_masks)} encoder passes, key mask equal to the timed "
+    print(f"{tag}: {len(pad_masks)} encoder passes, key mask equal to the timed "
           f"kernel's ({int(main_keep.sum())} kept keys) in all: {same}", flush=True)
     check(len(pad_masks) == N_FRAMES and same, "the main path's key mask is not the one "
           "the kernel was timed and bound on")
@@ -391,14 +440,14 @@ def phase_main(main_keep):
             check(len(bb) == 4 and all(math.isfinite(x) for x in bb), f"bad box {bb}")
             check(math.isfinite(out["object_presence_score"][oid]), "bad score")
     steady = frame_ms[WARMUP_FRAMES:]
-    print(f"main: init {init_ms:.1f} ms; track: {len(steady)} frames after "
+    print(f"{tag}: init {init_ms:.1f} ms; track: {len(steady)} frames after "
           f"{WARMUP_FRAMES} warm-up, median {np.median(steady):.3f} ms/frame, p90 "
           f"{np.percentile(steady, 90):.3f}, min {np.min(steady):.3f}, max "
           f"{np.max(steady):.3f}; first frame {frame_ms[0]:.1f} ms", flush=True)
-    print(f"main: last boxes {outs[-1]['target_bbox']} scores "
+    print(f"{tag}: last boxes {outs[-1]['target_bbox']} scores "
           f"{outs[-1]['object_presence_score']} flags {tracker.state.flag.tolist()}",
           flush=True)
-    print(f"main: fused_self_attention launches {launches} (expected 6 x {N_FRAMES})",
+    print(f"{tag}: fused_self_attention launches {launches} (expected 6 x {N_FRAMES})",
           flush=True)
     check(launches == 6 * N_FRAMES, f"kernel launched {launches} times, "
           f"expected {6 * N_FRAMES}")
@@ -434,17 +483,42 @@ def phase_profile(tracker, frames=None, tag="profile"):
               f"x{count / n:<6.1f} {key[:100]}", flush=True)
 
 
-def phase_gate(spec):
+def _gate_stats(s32, s16, l32, l16):
+    """The JAX package's bf16 gate statistics of (s16, l16) against (s32,
+    l32): score correlation, max-score relative difference, the largest
+    per-object argmax displacement (cells), median LTRB relative error.
+    Scores (1, 1, K, H, W), LTRB (1, 1, K, 4, H, W), numpy float64."""
+    corr = np.corrcoef(s32.ravel(), s16.ravel())[0, 1]
+    max_rel = abs(s16.max() - s32.max()) / max(abs(s32.max()), 1e-6)
+    disp = []
+    for k in range(s32.shape[2]):
+        a = np.unravel_index(np.argmax(s32[0, 0, k]), s32.shape[-2:])
+        b = np.unravel_index(np.argmax(s16[0, 0, k]), s16.shape[-2:])
+        disp.append(int(max(abs(a[0] - b[0]), abs(a[1] - b[1]))))
+    ltrb_err = float(np.median(np.abs(l16 - l32) / (np.abs(l32) + 1e-3)))
+    return corr, max_rel, disp, ltrb_err
+
+
+def _check_gate(tag, corr, max_rel, disp, ltrb_err):
+    print(f"{tag}: score corr {corr:.5f} (> 0.98), max-score rel diff {max_rel:.4f} (< 0.05), "
+          f"argmax disp {disp} (<= 2), median ltrb rel err {ltrb_err:.4f} (< 0.05)", flush=True)
+    check(corr > 0.98 and max_rel < 0.05 and max(disp) <= 2 and ltrb_err < 0.05,
+          f"{tag}: bf16 gate failed")
+
+
+def phase_gate(spec, net32_fn=None, tag="gate"):
     """bf16 with the kernel on the card vs float32 plain on the CPU, same
     weights, at the main path's sample size: two train frames and one test
-    frame of 384x576 (24x36 tokens each), so the encoder runs L = 2592."""
+    frame of 384x576 (24x36 tokens each), so the encoder runs L = 2592.
+    `net32_fn(feature_sz, num_tokens)` builds the float32 twin on the CPU
+    (TaMOs-R50's by default)."""
     from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_resnet50
     from pytracking_tpu_torch.ops import dcf, fused_mha
 
     K = spec.params.num_tokens
     net16 = spec.net
-    net32 = tamosnet_resnet50(feature_sz=max(spec.params.train_feature_size),
-                              num_tokens=K, device="cpu")
+    net32 = (net32_fn or tamosnet_resnet50)(feature_sz=max(spec.params.train_feature_size),
+                                            num_tokens=K, device="cpu")
     net32.load_state_dict({k: v.cpu() for k, v in net16.state_dict().items()})
     H, W = spec.params.image_sample_size
     h, w = H // 16, W // 16
@@ -467,21 +541,10 @@ def phase_gate(spec):
     s16, l16 = s16.double().cpu().numpy(), l16.double().cpu().numpy()
     s32, l32 = s32.double().numpy(), l32.double().numpy()
     check(np.isfinite(s16).all() and np.isfinite(l16).all(), "non-finite bf16 outputs")
-    corr = np.corrcoef(s32.ravel(), s16.ravel())[0, 1]
-    max_rel = abs(s16.max() - s32.max()) / max(abs(s32.max()), 1e-6)
-    disp = []
-    for k in range(K):
-        a = np.unravel_index(np.argmax(s32[0, 0, k]), s32.shape[-2:])
-        b = np.unravel_index(np.argmax(s16[0, 0, k]), s16.shape[-2:])
-        disp.append(int(max(abs(a[0] - b[0]), abs(a[1] - b[1]))))
-    ltrb_err = float(np.median(np.abs(l16 - l32) / (np.abs(l32) + 1e-3)))
-    print(f"gate: {H}x{W} samples, L = {3 * h * w}; kernel launches in the bf16 forward "
-          f"{launched}; CPU f32 forward {cpu_s:.1f} s; score corr {corr:.5f} (> 0.98), "
-          f"max-score rel diff {max_rel:.4f} (< 0.05), argmax disp {disp} (<= 2), median "
-          f"ltrb rel err {ltrb_err:.4f} (< 0.05)", flush=True)
-    check(launched == 6, f"gate forward launched the kernel {launched} times")
-    check(corr > 0.98 and max_rel < 0.05 and max(disp) <= 2 and ltrb_err < 0.05,
-          "bf16 gate failed")
+    print(f"{tag}: {H}x{W} samples, L = {3 * h * w}; kernel launches in the bf16 forward "
+          f"{launched}; CPU f32 forward {cpu_s:.1f} s", flush=True)
+    check(launched == 6, f"{tag}: forward launched the kernel {launched} times")
+    _check_gate(tag, *_gate_stats(s32, s16, l32, l16))
 
 
 def dimp_frame(rng_bg, t, H=480, W=640):
@@ -663,6 +726,173 @@ def phase_dimp_gate(spec, tag="dimp_gate", n_frames=DIMP_GATE_FRAMES, limit_px=D
     check(max(px) <= limit_px, f"{tag}: boxes differ by {max(px)} px")
 
 
+def tomp_spec(name, device="cuda", dtype=torch.float32):
+    """The ToMP parameter module's spec (seed 0) at its smoke thresholds."""
+    _, threshold, conf, distractor, _, _ = TOMP[name]
+    spec = importlib.import_module(f"pytracking_tpu_torch.parameter.tomp.{name}").parameters(
+        device=device, dtype=dtype, seed=0)
+    return dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, target_not_found_threshold=threshold, conf_ths=conf,
+        distractor_threshold=distractor))
+
+
+def _expected_key_padding(num_stored, M, hw, test_len, device):
+    """The ToMP encoder's (2, L) key padding with `num_stored` slots filled:
+    copy 0 (classification) ignores the empty slots, copy 1 (box
+    regression) every slot but slot 0; the test tokens are always kept."""
+    slots = torch.arange(M, device=device).repeat_interleave(hw)
+    test = torch.zeros(test_len, dtype=torch.bool, device=device)
+    return torch.stack([torch.cat([slots >= num_stored, test]), torch.cat([slots >= 1, test])])
+
+
+def phase_tomp(name="tomp50", tag="tomp"):
+    """A ToMP tracker in IEEE float32 at full width on the card: initialize +
+    its frames, then 10 more with the host synchronisations counted. Fails
+    unless every frame synchronises once, every encoder pass saw the key
+    padding of the slots stored before it, the memory took at least one
+    update into slot 1 and, where TOMP asks for it, at least one frame was
+    not_found."""
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES
+    from pytracking_tpu_torch.trackers.tomp import ToMPTracker
+
+    label, _, _, _, n_frames, require_not_found = TOMP[name]
+    t0 = time.perf_counter()
+    spec = tomp_spec(name)
+    tracker = ToMPTracker(spec.params, spec.net, device="cuda")
+    torch.cuda.synchronize()
+    p = spec.params
+    print(f"{tag}: {label} f32 built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f} M parameters; sample "
+          f"{p.image_sample_size}, memory {p.sample_memory_size}, not-found threshold "
+          f"{p.target_not_found_threshold}, conf_ths {p.conf_ths}, distractor threshold "
+          f"{p.distractor_threshold}", flush=True)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(n_frames + 11)]
+    enc_attn = spec.net.head.filter_predictor.transformer.encoder[0].self_attn
+    pad_masks, stored_before, weights = [], [], []
+    hook = enc_attn.register_forward_pre_hook(lambda m, args: pad_masks.append(args[3]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.initialize(frames[0], DIMP_INIT)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    frame_ms, outs = [], []
+    for im in frames[1:n_frames + 1]:
+        stored_before.append(tracker.state.num_stored)   # device tensors, read after the run
+        t0 = time.perf_counter()
+        out = tracker.track(im)           # reads back box, score and flag: ends in a sync
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        weights.append(tracker.state.mem_weights)
+    hook.remove()
+    torch.cuda.synchronize()
+    for out in outs:
+        check(len(out["target_bbox"]) == 4 and all(math.isfinite(v) for v in out["target_bbox"])
+              and math.isfinite(out["max_score"]), f"bad {label} output {out}")
+    st = tracker.state
+    for field in ("pos", "target_sz", "target_scale", "mem_samples", "mem_weights",
+                  "mem_boxes", "scale_history"):
+        check(bool(torch.isfinite(getattr(st, field)).all()), f"non-finite {label} state {field}")
+    M = p.sample_memory_size
+    h = p.train_feature_size
+    ok_masks = [bool(torch.equal(m, _expected_key_padding(n, M, h * h, h * h, m.device)))
+                for m, n in zip(pad_masks, stored_before)]
+    hist = {flag: sum(o["flag"] == flag for o in outs) for flag in FLAG_NAMES}
+    updates = sum(not torch.equal(a, b) for a, b in zip(weights[:-1], weights[1:]))
+    first_fill = next((i + 1 for i, w in enumerate(weights) if float(w[1]) > 0), None)
+    steady = np.asarray(frame_ms[WARMUP_FRAMES:])
+    peaks = np.asarray([o["max_score"] for o in outs])
+    print(f"{tag}: init {init_ms:.1f} ms; track: {len(steady)} frames after {WARMUP_FRAMES} "
+          f"warm-up, median {np.median(steady):.3f} ms/frame, p90 "
+          f"{np.percentile(steady, 90):.3f}, min {steady.min():.3f}, max {steady.max():.3f}; "
+          f"first frame {frame_ms[0]:.1f} ms", flush=True)
+    print(f"{tag}: flags {hist}; score peaks min/median/max {peaks.min():.4f} / "
+          f"{np.median(peaks):.4f} / {peaks.max():.4f}; slot 1 first filled on frame "
+          f"{first_fill}, memory updates after it {updates}; last box "
+          f"{[round(x, 1) for x in outs[-1]['target_bbox']]}", flush=True)
+    print(f"{tag}: {len(pad_masks)} encoder passes, key padding equal to the slot validity "
+          f"(copy 0: the stored slots, copy 1: slot 0) in {sum(ok_masks)}", flush=True)
+    check(len(pad_masks) == n_frames and all(ok_masks),
+          f"{tag}: the encoder's key padding does not follow the stored slots")
+    check(first_fill is not None, f"{tag}: no memory update into slot 1 in {n_frames} frames")
+    if require_not_found:
+        check(hist["not_found"] > 0, f"{tag}: no not_found frame in {n_frames}")
+
+    syncs = [_count_syncs(lambda im=im: tracker.track(im))[1] for im in frames[n_frames + 1:]]
+    print(f"{tag}: host synchronisations per frame over {len(syncs)} more frames: "
+          f"{[len(x) for x in syncs]} (target 1: the readback)", flush=True)
+    for msg in sorted(set(m for x in syncs if len(x) > 1 for m in x)):
+        print(f"{tag}:   sync: {msg[:300]}", flush=True)
+    check(all(len(x) == 1 for x in syncs), f"{tag}: not one host synchronisation per frame: "
+          f"{[len(x) for x in syncs]}")
+    return spec, tracker
+
+
+def phase_tomp_gate(spec, tag="tomp_gate", n_frames=TOMP_GATE_FRAMES, limit_px=DIMP_GATE_PX):
+    """Card against CPU, IEEE float32 on both: each CPU frame starts from
+    the card's state (copied), as in `phase_dimp_gate`. Equal flags and
+    replace indices, boxes within `limit_px`."""
+    from pytracking_tpu_torch.trackers.tomp import ToMPTracker
+
+    gpu = ToMPTracker(spec.params, spec.net, device="cuda")
+    cpu = ToMPTracker(spec.params, copy.deepcopy(spec.net).to("cpu"), device="cpu")
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(n_frames + 1)]
+    t0 = time.perf_counter()
+    for tr in (gpu, cpu):
+        tr.initialize(frames[0], DIMP_INIT)
+    px, flags, w_diff = [], [], []
+    for im in frames[1:]:
+        cpu.state = _state_to(gpu.state, "cpu")
+        og = gpu.track(im)
+        oc = cpu.track(im)
+        check(og["flag"] == oc["flag"], f"{tag}: flags differ {og['flag']} {oc['flag']}")
+        for name in ("prev_ind", "num_stored"):
+            a, b = int(getattr(gpu.state, name)), int(getattr(cpu.state, name))
+            check(a == b, f"{tag}: {name} differs: card {a}, CPU {b}")
+        px.append(float(np.abs(np.subtract(og["target_bbox"], oc["target_bbox"])).max()))
+        flags.append(og["flag"])
+        w_diff.append(float((gpu.state.mem_weights.cpu() - cpu.state.mem_weights).abs().max()))
+    print(f"{tag}: init + {n_frames} frames card vs CPU in {time.perf_counter() - t0:.1f} s; "
+          f"flags equal {flags}; replace indices equal; box difference per frame "
+          f"{[f'{x:.1e}' for x in px]} px (<= {limit_px}); memory weights max diff "
+          f"{max(w_diff):.1e}", flush=True)
+    check(max(px) <= limit_px, f"{tag}: boxes differ by {max(px)} px")
+
+
+def phase_tomp_bf16_gate(spec32, tag="tomp_bf16_gate"):
+    """ToMP-50 in bf16 (bf16 backbone and transformer, weights rounded
+    through bf16: the JAX package's PYTRACKING_TPU_BF16=1) against the
+    float32 net of the same seed, both on the card, one forward at the
+    tracker's sample size (two train frames and one test frame of
+    288x288), at the limits of the TaMOs bf16 gate."""
+    from pytracking_tpu_torch.ops import dcf
+    from pytracking_tpu_torch.trackers.tomp import ToMPTracker
+
+    spec16 = tomp_spec("tomp50", dtype=torch.bfloat16)
+    s = spec32.params.image_sample_size
+    h = spec32.params.train_feature_size
+    rng = np.random.RandomState(3)
+    im = torch.from_numpy(rng.rand(1, 1, 3, s, s).astype(np.float32) * 255)
+    tr = torch.cat([im, torch.roll(im, (6, 4), dims=(3, 4))]).cuda()
+    te = torch.roll(im, (3, -5), dims=(3, 4)).cuda()
+    centers = torch.from_numpy(rng.rand(2, 2).astype(np.float32) * 4 - 2)
+    lab = dcf.gauss_2d((h, h), 1.0, centers)[:, None].cuda()
+    # the dense LTRB maps of a 70x90 (w x h) box around each label's centre
+    cy, cx = (centers * 16 + (s - 1) / 2).unbind(-1)
+    boxes = torch.stack([cx - 35, cy - 45, torch.full_like(cx, 70), torch.full_like(cx, 90)], -1)
+    ltrb = ToMPTracker(spec32.params, spec32.net)._encode_ltrb(boxes.cuda())[:, None]
+    with torch.inference_mode():
+        s32, l32 = spec32.net(tr, te, lab, ltrb)
+        s16, l16 = spec16.net(tr, te, lab, ltrb)
+    torch.cuda.synchronize()
+    s32, l32, s16, l16 = (x.double().cpu().numpy()[:, :, None] for x in (s32, l32, s16, l16))
+    check(np.isfinite(s16).all() and np.isfinite(l16).all(), f"{tag}: non-finite outputs")
+    print(f"{tag}: ToMP-50 bf16 vs f32 on the card, {s}x{s} samples, L = {3 * h * h}", flush=True)
+    _check_gate(tag, *_gate_stats(s32, s16, l32, l16))
+    del spec16
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -684,6 +914,7 @@ def main():
         phase = "main"
         spec, tracker, launches, _ = phase_main(main_keep)
         kernel["launches"] = launches
+        kernel["launches_by_path"] = {"tamos_r50": launches}
         phase = "gate"
         phase_gate(spec)
         phase = "profile"
@@ -715,6 +946,30 @@ def main():
         t_next = tracker.state.frame_num
         phase_profile(tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                       tag="superdimp_profile")
+        del family, tracker
+        phase = "tomp"
+        tomp_spec32, tomp_tracker = phase_tomp("tomp50", "tomp")
+        phase = "tomp_gate"
+        phase_tomp_gate(tomp_spec32)
+        phase = "tomp_bf16_gate"
+        phase_tomp_bf16_gate(tomp_spec32)
+        phase = "tomp_profile"
+        t_next = tomp_tracker.state.frame_num
+        phase_profile(tomp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+                      tag="tomp_profile")
+        del tomp_spec32, tomp_tracker
+        phase = "tomp101"
+        phase_tomp("tomp101", "tomp101")
+        phase = "tamos_swin"
+        swin_spec, swin_tracker, swin_launches, _ = phase_main(
+            main_keep, module="tamos_swin_base", tag="tamos_swin", label="TaMOs-SwinBase")
+        kernel["launches"] = launches + swin_launches
+        kernel["launches_by_path"] = {"tamos_r50": launches, "tamos_swin": swin_launches}
+        phase = "tamos_swin_gate"
+        from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_swin_base
+        phase_gate(swin_spec, tamosnet_swin_base, tag="tamos_swin_gate")
+        phase = "tamos_swin_profile"
+        phase_profile(swin_tracker, tag="tamos_swin_profile")
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

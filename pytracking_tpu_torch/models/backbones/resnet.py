@@ -1,6 +1,6 @@
 """ResNet backbone with selectable intermediate outputs, NCHW (counterpart of
 pytracking_tpu/models/backbones/resnet.py: `BasicBlock`, `Bottleneck`,
-`ResNet`, `resnet18`, `resnet50`, `normalize_image`).
+`ResNet`, `resnet18`, `resnet50`, `resnet101`, `normalize_image`).
 
 Module names follow the JAX package (`layer3_2.conv2`, `downsample_bn`, ...),
 so `utils/convert_weights.py` maps one tree onto the other. `dtype` is the
@@ -150,6 +150,10 @@ def resnet18(output_layers=("layer2", "layer3"), dtype=None) -> ResNet:
 
 def resnet50(output_layers=("layer2", "layer3"), dtype=None) -> ResNet:
     return ResNet(layers=(3, 4, 6, 3), output_layers=output_layers, dtype=dtype)
+
+
+def resnet101(output_layers=("layer2", "layer3"), dtype=None) -> ResNet:
+    return ResNet(layers=(3, 4, 23, 3), output_layers=output_layers, dtype=dtype)
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

@@ -35,22 +35,32 @@ class BatchNorm(nn.Module):
 
     Normalises along `dim` (1 for NCHW maps, -1 for token vectors). The
     arithmetic is float32 and the result takes the input's dtype, as flax's
-    BatchNorm with a compute dtype gives."""
+    BatchNorm with a compute dtype gives. With `param_dtype` bfloat16 (the
+    statistics and affine parameters stored as bf16 values, as the JAX
+    package's bf16 mode stores them) a bf16 input is normalised in bf16
+    arithmetic, step by step as flax does: (x - mean) * (rsqrt(var + eps) *
+    scale) + bias."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, dim: int = 1):
         super().__init__()
         self.eps = eps
         self.dim = dim
+        self.param_dtype = torch.float32
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        shift = self.bias - self.running_mean * mul
         shape = [1] * x.dim()
         shape[self.dim] = -1
+        if torch.promote_types(x.dtype, self.param_dtype) == torch.bfloat16:
+            dt = torch.bfloat16
+            mul = torch.rsqrt(self.running_var.to(dt) + self.eps) * self.weight.to(dt)
+            return (x - self.running_mean.to(dt).view(shape)) * mul.view(shape) \
+                + self.bias.to(dt).view(shape)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        shift = self.bias - self.running_mean * mul
         return (x.float() * mul.view(shape) + shift.view(shape)).to(x.dtype)
 
 

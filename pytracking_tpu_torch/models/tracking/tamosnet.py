@@ -1,6 +1,6 @@
 """TaMOs network: multi-object transformer tracking with an FPN (counterpart
 of pytracking_tpu/models/tracking/tamosnet.py: `FPN`, `TaMOsNet`,
-`tamosnet_resnet50`).
+`tamosnet_resnet50`, `tamosnet_swin_base`).
 
 Feature maps are NCHW; a frame stack is (Nf, Ns, C, H, W). Scores are
 (Nf, Ns, K, H, W) and dense boxes (Nf, Ns, K, 4, H, W).
@@ -16,8 +16,10 @@ import torch
 from torch import nn
 
 from pytracking_tpu_torch.models.backbones import resnet as backbones
+from pytracking_tpu_torch.models.backbones.swin import WindowAttention, swin_base
 from pytracking_tpu_torch.models.classifier.features import ResidualBottleneck
 from pytracking_tpu_torch.models.layers.blocks import BatchNorm, trunc_normal_fan_in
+from pytracking_tpu_torch.models.transformer.filter_predictor import FilterPredictor
 from pytracking_tpu_torch.models.transformer.got_filter_predictor import \
     GOTFilterPredictor
 from pytracking_tpu_torch.models.transformer.heads import (DenseBoxRegressor,
@@ -154,8 +156,10 @@ class TaMOsNet(nn.Module):
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from `generator` with the JAX package's
     initialisers: lecun-normal convolution and dense kernels, he-normal for
-    the head feature conv, orthogonal object queries, zero biases, unit norm
-    scales and identity BatchNorm statistics."""
+    the head feature conv, orthogonal object queries (TaMOs), unit-normal
+    foreground and test tokens (ToMP), a truncated normal of std 0.02 for
+    Swin's relative position biases, zero biases, unit norm scales and
+    identity BatchNorm statistics."""
     for name, m in net.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             trunc_normal_fan_in(m.weight, 2.0 if name.endswith("final_conv") else 1.0,
@@ -170,6 +174,12 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.running_var.fill_(1.0)
         elif isinstance(m, GOTFilterPredictor):
             nn.init.orthogonal_(m.query_embed_fg, generator=generator)
+        elif isinstance(m, FilterPredictor):
+            nn.init.normal_(m.query_embed_fg, generator=generator)
+            if m.query_embed_test is not None:
+                nn.init.normal_(m.query_embed_test, generator=generator)
+        if isinstance(m, WindowAttention):
+            nn.init.trunc_normal_(m.rel_pos_bias, 0.0, 0.02, -0.04, 0.04, generator=generator)
     return net
 
 
@@ -201,5 +211,37 @@ def tamosnet_resnet50(filter_size: int = 1, head_layer: str = "layer3",
                    classifier=LinearFilterClassifier(out_feature_dim),
                    bb_regressor=DenseBoxRegressor(out_feature_dim),
                    fpn=FPN(out_feature_dim, 512, out_feature_dim), head_layer=head_layer)
+    init_weights(net, generator or torch.Generator().manual_seed(0))
+    return net.to(device).eval()
+
+
+def tamosnet_swin_base(filter_size: int = 1, out_feature_dim: int = 256,
+                       nhead: int = 8, num_encoder_layers: int = 6,
+                       num_decoder_layers: int = 6, dim_feedforward: int = 2048,
+                       feature_sz: int = 36, num_tokens: int = 10,
+                       box_enc: str = "ltrb_token",
+                       transformer_dtype: Optional[torch.dtype] = None,
+                       generator: Optional[torch.Generator] = None,
+                       device="cuda") -> TaMOsNet:
+    """TaMOs with a Swin-Base backbone (float32) on `device`: the head
+    feature from stage3 (512 channels), the FPN's high-res level from
+    stage2 (256 channels). Weights drawn from `generator` (seed 0 when none
+    is given)."""
+    device = resolve_device(device)
+    norm_scale = math.sqrt(1.0 / (out_feature_dim * filter_size * filter_size))
+    head_fe = ResidualBottleneck(in_dim=512, out_dim=out_feature_dim, norm_scale=norm_scale,
+                                 feature_dim=128)
+    transformer = Transformer(d_model=out_feature_dim, nhead=nhead,
+                              num_encoder_layers=num_encoder_layers,
+                              num_decoder_layers=num_decoder_layers,
+                              dim_feedforward=dim_feedforward, dtype=transformer_dtype)
+    fp = GOTFilterPredictor(transformer, feature_sz=feature_sz, num_tokens=num_tokens,
+                            box_enc=box_enc)
+    net = TaMOsNet(feature_extractor=swin_base(output_layers=("stage2", "stage3")),
+                   head_feature_extractor=head_fe, filter_predictor=fp,
+                   classifier=LinearFilterClassifier(out_feature_dim),
+                   bb_regressor=DenseBoxRegressor(out_feature_dim),
+                   fpn=FPN(out_feature_dim, 256, out_feature_dim), head_layer="stage3",
+                   high_res_layer="stage2")
     init_weights(net, generator or torch.Generator().manual_seed(0))
     return net.to(device).eval()

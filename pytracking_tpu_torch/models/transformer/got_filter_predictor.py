@@ -16,20 +16,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pytracking_tpu_torch.models.transformer.filter_predictor import BoxEncoder
-from pytracking_tpu_torch.models.transformer.position_encoding import \
-    position_embedding_sine
+from pytracking_tpu_torch.models.transformer.filter_predictor import (
+    BoxEncoder, _frame_key_padding, _pos_tokens, _stack2, _tokens)
 from pytracking_tpu_torch.models.transformer.transformer import Transformer
-
-
-def _tokens(feat: torch.Tensor) -> torch.Tensor:
-    """(Nf, Ns, C, H, W) -> (Ns, Nf*H*W, C)."""
-    Nf, Ns, C, H, W = feat.shape
-    return feat.permute(1, 0, 3, 4, 2).reshape(Ns, Nf * H * W, C)
-
-
-def _stack2(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    return torch.cat([x, x], dim=dim)
 
 
 class GOTFilterPredictor(nn.Module):
@@ -46,9 +35,7 @@ class GOTFilterPredictor(nn.Module):
         nn.init.orthogonal_(self.query_embed_fg)
 
     def _pos(self, feat: torch.Tensor) -> torch.Tensor:
-        Nf, Ns, C, H, W = feat.shape
-        pos = position_embedding_sine((H, W), C, self.feature_sz, device=feat.device)
-        return pos.reshape(1, H * W, C).repeat(Ns, Nf, 1)
+        return _pos_tokens(feat, self.feature_sz)
 
     def _train_tokens(self, train_feat, train_label, train_ltrb):
         Nf, Ns, C, H, W = train_feat.shape
@@ -81,9 +68,8 @@ class GOTFilterPredictor(nn.Module):
         pos = torch.cat([self._pos(train_feat), self._pos(test_feat)], dim=1)
         key_padding = None
         if train_frame_mask is not None:
-            tok_mask = torch.repeat_interleave(~train_frame_mask.bool(), H * W)
-            row = torch.cat([tok_mask, tok_mask.new_zeros(Nf_te * h * w)])
-            key_padding = row[None].expand(Ns, -1)
+            key_padding = _frame_key_padding(train_frame_mask, H * W,
+                                             Nf_te * h * w)[None].expand(Ns, -1)
         return self._decode(seq, pos, key_padding, test_feat)
 
     def predict_cls_bbreg_filters_parallel(self, train_feat, test_feat, train_label,
@@ -102,10 +88,8 @@ class GOTFilterPredictor(nn.Module):
         pos = torch.cat([_stack2(self._pos(train_feat), 0),
                          _stack2(self._pos(test_feat), 0)], dim=1)
         valid = train_frame_mask.bool()
-        valid_gth = valid & gth_frame_mask.bool()
-        test_rows = valid.new_zeros(Nf_te * h * w)
-        row_cls = torch.cat([torch.repeat_interleave(~valid, H * W), test_rows])
-        row_bb = torch.cat([torch.repeat_interleave(~valid_gth, H * W), test_rows])
+        row_cls = _frame_key_padding(valid, H * W, Nf_te * h * w)
+        row_bb = _frame_key_padding(valid & gth_frame_mask.bool(), H * W, Nf_te * h * w)
         key_padding = torch.cat([row_cls[None].expand(Ns, -1),
                                  row_bb[None].expand(Ns, -1)], dim=0)
         dec, enc = self._decode(seq, pos, key_padding, test_feat)

@@ -1,5 +1,5 @@
-"""Flax variables of the JAX package's TaMOsNet and DiMPnet -> state_dicts
-of the port's nets.
+"""Flax variables of the JAX package's TaMOsNet, ToMPnet and DiMPnet ->
+state_dicts of the port's nets.
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree as
 nested dicts of numpy arrays (np.asarray of each leaf), so this module
@@ -9,7 +9,9 @@ imports no JAX. Conversions:
     biases (H, hd) -> (H*hd,);
   * norm scale -> weight; BatchNorm mean/var -> running_mean/running_var;
   * the scanned encoder/decoder stacks (leading layer axis) are unstacked
-    into `encoder.{i}` / `decoder.{i}` (TaMOs);
+    into `encoder.{i}` / `decoder.{i}` (TaMOs, ToMP);
+  * the learned tokens (`query_embed_fg`, `query_embed_test`) and Swin's
+    relative position bias tables keep their names and shapes;
   * IoU-Net's LinearBlock Dense kernels flatten NHWC RoIs in (h, w, c)
     order, the port flattens (c, h, w): their rows are permuted (DiMP);
   * the DiMP optimiser's parameters keep their names and shapes.
@@ -79,8 +81,8 @@ def _convert_leaf(module_path: tuple, leaf: str, arr: np.ndarray) -> tuple:
         return "running_mean", arr
     if leaf == "var":
         return "running_var", arr
-    if leaf == "query_embed_fg":
-        return "query_embed_fg", arr
+    if leaf in ("query_embed_fg", "query_embed_test", "rel_pos_bias"):
+        return leaf, arr
     raise KeyError(f"unknown flax leaf {'/'.join(module_path + (leaf,))}")
 
 
@@ -118,8 +120,21 @@ def _check_against(sd: Dict[str, torch.Tensor], net: Optional[nn.Module]) -> Non
 
 def tamosnet_from_flax(variables: Mapping,
                        net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
-    """Convert the flax variables of a TaMOsNet into the port's state_dict.
+    """Convert the flax variables of a TaMOsNet (ResNet-50 or Swin-Base
+    backbone) into the port's state_dict. With `net`, raise unless the keys
+    and shapes are exactly the net's."""
+    return _transformer_net_from_flax(variables, net)
+
+
+def tompnet_from_flax(variables: Mapping,
+                      net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a ToMPnet into the port's state_dict.
     With `net`, raise unless the keys and shapes are exactly the net's."""
+    return _transformer_net_from_flax(variables, net)
+
+
+def _transformer_net_from_flax(variables: Mapping,
+                               net: Optional[nn.Module]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _flat_variables(variables).items():
         module_path, leaf = path[:-1], path[-1]

@@ -1,0 +1,27 @@
+"""Weight precision of the port's nets (counterpart of
+pytracking_tpu/utils/loading.py `maybe_bf16_variables`)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pytracking_tpu_torch.models.layers.blocks import BatchNorm
+
+
+@torch.no_grad()
+def round_to_bf16_(net: nn.Module) -> nn.Module:
+    """Round every float32 parameter and buffer of `net` through bfloat16, in
+    place; they stay float32 tensors. The JAX package's bf16 mode stores
+    them as bfloat16: where a layer computes in float32 it promotes them
+    back, so the float32 layers (heads, box encoder, feature block) see the
+    rounded values, as here. Where a BatchNorm meets a bf16 input (the bf16
+    backbone) flax's arithmetic is bf16 with bf16 statistics: the
+    BatchNorms are marked to do the same."""
+    for t in net.state_dict().values():
+        if t.dtype == torch.float32:
+            t.copy_(t.to(torch.bfloat16))
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            m.param_dtype = torch.bfloat16
+    return net

@@ -1,5 +1,6 @@
 """The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
-own scripts (scripts/dimp_check.py, scripts/k1_check.py) import no JAX, no
+own scripts (scripts/dimp_check.py, scripts/k1_check.py,
+scripts/tomp_check.py) import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
@@ -16,7 +17,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
-PORT_SCRIPTS = ("dimp_check.py", "k1_check.py")
+PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py")
 
 
 def _port_sources():
@@ -110,6 +111,23 @@ def test_entry_points_raise_without_cuda():
                    "dimp.prdimp50_vot18", "dimp_simple.super_dimp_simple"):
         with pytest.raises(RuntimeError, match="CUDA"):
             importlib.import_module(f"pytracking_tpu_torch.parameter.{module}").parameters()
+    from pytracking_tpu_torch.models.tracking import tompnet
+    from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_swin_base
+    from pytracking_tpu_torch.trackers.tomp import ToMPParams, ToMPTracker
+
+    for name in ("tompnet50", "tompnet101"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            getattr(tompnet, name)()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tamosnet_swin_base()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ToMPTracker(ToMPParams(), torch.nn.Linear(1, 1))
+    for module in ("tomp.tomp50", "tomp.tomp101", "tamos.tamos_swin_base"):
+        mod = importlib.import_module(f"pytracking_tpu_torch.parameter.{module}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters(device="cuda", dtype=torch.bfloat16)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
