@@ -61,6 +61,25 @@ Phases (any failure exits non-zero and prints no result line):
               frames, two objects, the kernel 6 times per frame on the
               timed key mask; then its bf16 `gate` (tamos_swin_gate) and its
               profile (tamos_swin_profile).
+ 19. kys      KYS in IEEE float32 at full width (DiMP-50 plus the
+              scene-propagation branch: 18x18 motion grid of 1024-channel
+              features, cost volume over displacements up to 9, 8-channel
+              state; no Pallas kernel on this path) on the DiMP sequence, 110
+              frames at KYS_NOT_FOUND_THRESHOLD_FUSED: one host
+              synchronisation per frame, the state made valid by a found
+              frame, both alignments of the previous frame, a not_found
+              frame that keeps the state, K1 not launched; then kys_gate
+              (card vs CPU, 5 single steps: flags, boxes, state vectors)
+              and kys_profile (K1 launches counted by kernel name: 0);
+ 20. keep_track  KeepTrack (`default`: two ResNet-50s at 480x480, K = 10,
+              the SuperGlue GNN and Sinkhorn, the device association) over
+              60 frames at the KEEP_TRACK_* cuts: one synchronisation per
+              frame, frames with two or more candidates, a new object id from
+              the association, a lost frame that rescales the search area
+              from the history, K1 not launched; keep_track_gate (also the
+              association state equal), keep_track_profile (K1: 0);
+              keep_track_fast (`default_fast`, 352x352, 40 frames, one
+              synchronisation per frame).
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -86,6 +105,7 @@ PEAK_HBM_BYTES = 3.35e12
 # special-function units: 132 SMs x 16 exponentials per clock x 1.83 GHz
 PEAK_SFU_EXP = 132 * 16 * 1.83e9
 
+K1_KERNEL = "mha_fwd"                # both of K1's kernels' names start so
 TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
                                     # of 24x36 tokens), heads, head dim
 N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
@@ -163,6 +183,44 @@ TOMP101_NOT_FOUND_THRESHOLD = 0.25
 TOMP101_CONF_THS = 0.9
 TOMP101_DISTRACTOR_THRESHOLD = 0.8
 TOMP_GATE_FRAMES = 5
+# KYS: the predictor zeroes its fused response wherever the (windowed,
+# quarter-cell shifted) DiMP score is at most `dimp_threshold`, 0.05 in the
+# module, a value for a trained net. The seeded net's raw DiMP peaks on this
+# sequence are 0.0345-0.0538 (`scripts/kys_check.py scores [fused:dimp ...]`;
+# NVIDIA H100 80GB HBM3, 700 W): at 0.05 the fused response is 0 on every
+# frame, every frame is not_found and the state never becomes valid. At a
+# DiMP threshold of 0.01 or 0.015 the fused peaks are 0.3070-0.3098 and all
+# 110 frames normal, aligned by the sub-pixel removal only; fused not-found
+# thresholds of 0.3075-0.309 there lose the target for good (52-110
+# not_found) with no centre shift. At 0.02 one frame is not_found and one
+# centre-shifted, at 0.025 one centre-shifted and none lost, at 0.035-0.04
+# all normal with no centre shift. At 0.03 (raw DiMP peaks 0.0230-0.1241)
+# the response is zeroed on 10 frames: normal 100, not_found 10 (each keeping
+# the state), one centre shift (frame 70) and 108 sub-pixel alignments; the
+# fused not-found threshold keeps the module's 0.05 (the found frames' fused
+# peaks are about 0.297-0.312).
+KYS_NOT_FOUND_THRESHOLD_FUSED = 0.05
+KYS_DIMP_THRESHOLD = 0.03
+# KeepTrack: the modules' DiMP not-found threshold 0.25 and candidate
+# threshold 0.05 (default_fast: 0.1) are for a trained net's scores. The
+# seeded nets' raw score peaks on this sequence (`scripts/keep_track_check.py
+# scores [default|default_fast] [nf:cand ...]`; NVIDIA H100 80GB HBM3,
+# 700 W): `default` 0.0189-0.0201, with 0 local maxima (5x5) above 0.05,
+# 0-1 above 0.02 and 3-5 above 0.01 per frame: at the module's cuts no frame
+# has a candidate, every frame is not_found on DiMP's localisation and the
+# association never runs. At a candidate threshold of 0.01 each frame has 3-5
+# candidates; the not-found threshold then only acts on frame 1 (no previous
+# candidates: DiMP's localisation), and at 0.015 (below every peak; 0.0 and
+# 0.018 give the same run) frame 1 is uncertain and stores its scale. From
+# frame 2 the association decides: the target's candidate matches with
+# probability < 0.85 at a score < 0.2, so it gets a new object id (29 frames
+# with new ids), no candidate reaches the reselect score 0.25, and the other
+# 59 frames are not_found, each rescaling the search area from the history.
+# `default_fast` at the same cuts: peaks 0.0191-0.0232, 8-10 candidates per
+# frame, one hard negative, 39 not_found.
+KEEP_TRACK_NOT_FOUND_THRESHOLD = 0.015
+KEEP_TRACK_CANDIDATE_THRESHOLD = 0.01
+KEEP_TRACK_FRAMES = 60
 # parameter module: (label, not-found threshold, conf_ths, distractor threshold, frames,
 # whether a not_found frame is required)
 TOMP = {"tomp50": ("ToMP-50", TOMP_NOT_FOUND_THRESHOLD, TOMP_CONF_THS,
@@ -475,12 +533,15 @@ def phase_profile(tracker, frames=None, tag="profile"):
     busy = sum(r[1] for r in rows)
     check(busy > 0, "the profiler recorded no device kernel time")
     rows.sort(key=lambda r: -r[1])
+    k1 = sum(count for key, _, count in rows if K1_KERNEL in key)
     print(f"{tag}: kernels {busy / n / 1e3:.3f} ms/frame of {wall_us / n / 1e3:.3f} ms "
           f"wall/frame under the profiler: device busy {100 * busy / wall_us:.1f}%, "
-          f"{sum(r[2] for r in rows) // n} kernel launches/frame", flush=True)
+          f"{sum(r[2] for r in rows) // n} kernel launches/frame; K1 ({K1_KERNEL}*) launched "
+          f"{k1} times in {n} frames", flush=True)
     for key, us, count in rows[:15]:
         print(f"{tag}:   {us / n / 1e3:8.3f} ms/frame {100 * us / max(busy, 1):5.1f}% "
               f"x{count / n:<6.1f} {key[:100]}", flush=True)
+    return k1
 
 
 def _gate_stats(s32, s16, l32, l16):
@@ -674,19 +735,25 @@ def _state_to(state, device):
         if isinstance(getattr(state, f.name), torch.Tensor)})
 
 
-def phase_dimp_gate(spec, tag="dimp_gate", n_frames=DIMP_GATE_FRAMES, limit_px=DIMP_GATE_PX):
+def phase_dimp_gate(spec, tag="dimp_gate", n_frames=DIMP_GATE_FRAMES, limit_px=DIMP_GATE_PX,
+                    tracker_cls=None, compare=None):
     """Card against CPU, IEEE float32 on both, the card's draws replayed on
     the CPU tracker. Each frame starts the CPU tracker from the card's state
     (copied), so the gate holds every step to `limit_px` and equal flags
     and replace indices: run free, the two drift apart through the random
     net's feedback loop (`scripts/dimp_check.py gate`: 1e-4 px after one
-    frame, 15 px after ten), which would measure the loop, not the port."""
+    frame, 15 px after ten), which would measure the loop, not the port.
+    `tracker_cls` (DiMPTracker by default) gets the spec's tracker kwargs,
+    copied to the CPU for the CPU tracker; `compare(card state, CPU state)`
+    raises on a further disagreement and returns a line to print."""
     from pytracking_tpu_torch.trackers.dimp import DiMPTracker
 
+    tracker_cls = tracker_cls or DiMPTracker
     net_cpu = copy.deepcopy(spec.net).to("cpu")
-    gpu = DiMPTracker(spec.params, spec.net, device="cuda")
-    cpu = DiMPTracker(spec.params, net_cpu, device="cpu")
-    draws = []
+    kwargs_cpu = {k: copy.deepcopy(v).to("cpu") for k, v in spec.tracker_kwargs.items()}
+    gpu = tracker_cls(spec.params, spec.net, device="cuda", **spec.tracker_kwargs)
+    cpu = tracker_cls(spec.params, net_cpu, device="cpu", **kwargs_cpu)
+    draws, extra = [], []
 
     def recording(fn):
         def draw(*args):
@@ -717,12 +784,16 @@ def phase_dimp_gate(spec, tag="dimp_gate", n_frames=DIMP_GATE_FRAMES, limit_px=D
         flags.append(og["flag"])
         filt = gpu.state.target_filter.cpu()
         filt_rel.append(float((filt - cpu.state.target_filter).abs().max() / filt.abs().max()))
+        if compare is not None:
+            extra.append(compare(gpu.state, cpu.state))
     check(not draws, f"{tag}: the CPU tracker did not consume every draw of the card's")
     print(f"{tag}: init + {n_frames} frames card vs CPU in "
           f"{time.perf_counter() - t0:.1f} s; init filter max rel diff {init_rel:.2e}; flags "
           f"equal {flags}; replace indices equal; box difference per frame "
           f"{[f'{x:.1e}' for x in px]} px (<= {limit_px}); filter max rel diff after each "
           f"frame {[f'{x:.1e}' for x in filt_rel]}", flush=True)
+    for t, line in enumerate(extra, 1):
+        print(f"{tag}:   frame {t}: {line}", flush=True)
     check(max(px) <= limit_px, f"{tag}: boxes differ by {max(px)} px")
 
 
@@ -893,6 +964,248 @@ def phase_tomp_bf16_gate(spec32, tag="tomp_bf16_gate"):
     del spec16
 
 
+def kys_spec(device="cuda"):
+    """parameter/kys/default (seed 0) at the smoke's fused not-found and DiMP
+    score thresholds."""
+    from pytracking_tpu_torch.parameter.kys import default
+
+    spec = default.parameters(device=device, seed=0)
+    return dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, target_not_found_threshold_fused=KYS_NOT_FOUND_THRESHOLD_FUSED,
+        dimp_threshold=KYS_DIMP_THRESHOLD))
+
+
+def kys_branch(have_state, prev_box_patch, params):
+    """The alignment a KYS frame applies to the previous one, from the state
+    before it: none before a state exists, the centre shift when the previous
+    box centre left the centre band, else the sub-pixel removal."""
+    if not have_state:
+        return "none"
+    box = np.asarray(prev_box_patch, np.float64)
+    c = box[:2] + box[2:] / 2
+    s = params.image_sample_size
+    band = (s * (0.5 - 1 / params.search_area_scale), s * (0.5 + 1 / params.search_area_scale))
+    return "sub" if np.all((c > band[0]) & (c < band[1])) else "center"
+
+
+def _report_frames(tag, frame_ms, init_ms, outs, flag_names):
+    steady = np.asarray(frame_ms[WARMUP_FRAMES:])
+    hist = {flag: sum(o["flag"] == flag for o in outs) for flag in flag_names}
+    print(f"{tag}: init {init_ms:.1f} ms; track: {len(steady)} frames after {WARMUP_FRAMES} "
+          f"warm-up, median {np.median(steady):.3f} ms/frame, p90 "
+          f"{np.percentile(steady, 90):.3f}, min {steady.min():.3f}, max {steady.max():.3f}; "
+          f"first frame {frame_ms[0]:.1f} ms", flush=True)
+    for out in outs:
+        check(len(out["target_bbox"]) == 4 and all(math.isfinite(v) for v in out["target_bbox"])
+              and math.isfinite(out["max_score"]), f"{tag}: bad output {out}")
+    return hist
+
+
+def _check_one_sync(tag, tracker, frames):
+    syncs = [_count_syncs(lambda im=im: tracker.track(im))[1] for im in frames]
+    print(f"{tag}: host synchronisations per frame over {len(syncs)} more frames: "
+          f"{[len(x) for x in syncs]} (target 1: the readback)", flush=True)
+    for msg in sorted(set(m for x in syncs if len(x) > 1 for m in x)):
+        print(f"{tag}:   sync: {msg[:300]}", flush=True)
+    check(all(len(x) == 1 for x in syncs), f"{tag}: not one host synchronisation per frame: "
+          f"{[len(x) for x in syncs]}")
+
+
+def phase_kys(tag="kys"):
+    """KYS at full width on the card (ResNet-50 to layer3 at 288x288, an
+    18x18 motion grid of 1024-channel features, displacements up to 9,
+    an 8-channel state, memory 50): initialize + 110 frames, then 10 more
+    with the host synchronisations counted. Fails unless every frame
+    synchronises once, a found frame after the first makes the propagation
+    state valid, both alignments (centre shift, sub-pixel) run, a not_found
+    frame keeps the state, and K1 is not launched."""
+    from pytracking_tpu_torch.ops import fused_mha
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES
+    from pytracking_tpu_torch.trackers.kys import KYSTracker
+
+    t0 = time.perf_counter()
+    spec = kys_spec()
+    tracker = KYSTracker(spec.params, spec.net, device="cuda")
+    torch.cuda.synchronize()
+    p = spec.params
+    print(f"{tag}: KYS f32 built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f} M parameters; sample "
+          f"{p.image_sample_size}, motion grid {p.image_sample_size // 16}, max displacement "
+          f"{spec.net.max_displacement}, state {spec.net.predictor.state_dim}, memory "
+          f"{p.sample_memory_size}, fused not-found threshold "
+          f"{p.target_not_found_threshold_fused}, DiMP threshold {p.dimp_threshold}", flush=True)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(N_FRAMES + 11)]
+    k1_before = fused_mha.fused_self_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.initialize(frames[0], DIMP_INIT)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    frame_ms, outs, before, after = [], [], [], []
+    for im in frames[1:N_FRAMES + 1]:
+        st = tracker.state                  # device tensors, read after the run
+        before.append((st.have_state, st.prev_box_patch, st.state_vector, st.motion_feat_prev,
+                       st.prev_label))
+        t0 = time.perf_counter()
+        out = tracker.track(im)           # reads back box, score and flag: ends in a sync
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        st = tracker.state
+        after.append((st.have_state, st.state_vector, st.motion_feat_prev, st.prev_label))
+    torch.cuda.synchronize()
+    hist = _report_frames(tag, frame_ms, init_ms, outs, FLAG_NAMES)
+    st = tracker.state
+    for field in ("pos", "target_sz", "target_filter", "mem_weights", "state_vector",
+                  "motion_feat_prev", "prev_label", "prev_box_patch"):
+        check(bool(torch.isfinite(getattr(st, field)).all()), f"non-finite KYS state {field}")
+    branches = [kys_branch(bool(b[0]), b[1].tolist(), p) for b in before]
+    kept = [all(torch.equal(b, a) for b, a in zip(bf[2:], af[1:]))
+            for bf, af, o in zip(before, after, outs) if o["flag"] == "not_found"]
+    valid_from = next((i + 1 for i, a in enumerate(after) if bool(a[0])), None)
+    peaks = np.asarray([o["max_score"] for o in outs])
+    print(f"{tag}: flags {hist}; fused peaks min/median/max {peaks.min():.5f} / "
+          f"{np.median(peaks):.5f} / {peaks.max():.5f}; state valid from frame {valid_from}; "
+          f"alignment per frame {dict(collections.Counter(branches))}; not_found frames "
+          f"keeping the state {sum(kept)} of {len(kept)}; last box "
+          f"{[round(x, 1) for x in outs[-1]['target_bbox']]}", flush=True)
+    check(valid_from is not None, f"{tag}: the state never became valid")
+    check(sum(o["flag"] != "not_found" for o in outs[1:]) > 0,
+          f"{tag}: no found frame after the first")
+    check(branches.count("center") > 0 and branches.count("sub") > 0,
+          f"{tag}: not both alignments ran: {dict(collections.Counter(branches))}")
+    check(len(kept) > 0 and all(kept), f"{tag}: no not_found frame, or one that changed the "
+          f"propagation state")
+    _check_one_sync(tag, tracker, frames[N_FRAMES + 1:])
+    k1 = fused_mha.fused_self_attention.launches - k1_before
+    print(f"{tag}: fused_self_attention launches {k1} (expected 0)", flush=True)
+    check(k1 == 0, f"{tag}: K1 launched {k1} times")
+    return spec, tracker
+
+
+def kys_compare(gpu_state, cpu_state):
+    """KYS's gate beyond DiMP's: the state vectors within 1e-4 of their
+    scale and the same validity."""
+    a, b = gpu_state.state_vector.cpu(), cpu_state.state_vector
+    scale = max(1.0, float(a.abs().max()))
+    err = float((a - b).abs().max())
+    check(bool(gpu_state.have_state) == bool(cpu_state.have_state), "kys_gate: have_state differs")
+    check(err <= 1e-4 * scale, f"kys_gate: state vectors differ by {err} (scale {scale})")
+    return f"state_vector max diff {err:.2e} (<= {1e-4 * scale:.1e})"
+
+
+def keep_track_spec(name="default", device="cuda"):
+    """A KeepTrack parameter module's spec (seed 0) at the smoke's cuts."""
+    module = importlib.import_module(f"pytracking_tpu_torch.parameter.keep_track.{name}")
+    spec = module.parameters(device=device, seed=0)
+    return dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, target_not_found_threshold=KEEP_TRACK_NOT_FOUND_THRESHOLD,
+        local_max_candidate_score_th=KEEP_TRACK_CANDIDATE_THRESHOLD))
+
+
+def expected_rescale(hist, n, counter, scale):
+    """The search-area rescaling of a lost frame, on the host, from the state
+    before it: the mean of the newest min(max(counter, 2), 30) history
+    entries at least as large as the newest one."""
+    hist = np.asarray(hist, np.float64)
+    if n == 0:
+        return scale
+    valid = np.arange(len(hist)) >= len(hist) - n
+    kept = np.flatnonzero(valid & (hist >= hist[-1]))
+    return float(hist[kept[-min(max(counter, 2), 30):]].mean())
+
+
+def phase_keep_track(name="default", tag="keep_track", n_frames=KEEP_TRACK_FRAMES,
+                     full_checks=True):
+    """KeepTrack at full width on the card (two ResNet-50s to layer3 at the
+    module's sample size, K = 10 candidates, the SuperGlue GNN and Sinkhorn,
+    the device association): initialize + `n_frames`, then 10 more with the
+    host synchronisations counted. With `full_checks` it also fails unless
+    some frames have two or more valid candidates, the association assigns a
+    new object id, a lost frame rescales the search area from the history,
+    and K1 is not launched."""
+    from pytracking_tpu_torch.ops import fused_mha
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES
+    from pytracking_tpu_torch.trackers.keep_track import KeepTrackTracker
+
+    t0 = time.perf_counter()
+    spec = keep_track_spec(name)
+    tracker = KeepTrackTracker(spec.params, spec.net, device="cuda", **spec.tracker_kwargs)
+    torch.cuda.synchronize()
+    p = spec.params
+    print(f"{tag}: KeepTrack ({name}) f32 built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f} + "
+          f"{sum(x.numel() for x in tracker.tcm_net.parameters()) / 1e6:.1f} M parameters; "
+          f"sample {p.image_sample_size}, K = {p.max_candidates}, {p.box_refinement_iter} "
+          f"relative-space box steps, memory {p.sample_memory_size}, not-found threshold "
+          f"{p.target_not_found_threshold}, candidate threshold "
+          f"{p.local_max_candidate_score_th}", flush=True)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(n_frames + 11)]
+    k1_before = fused_mha.fused_self_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.initialize(frames[0], DIMP_INIT)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    names = ("assoc_active", "assoc_id_cntr", "target_scale", "scale_history",
+             "scale_history_n", "target_not_found_counter", "prev_cand_valid")
+    frame_ms, outs, before, after = [], [], [], []
+    for im in frames[1:n_frames + 1]:
+        before.append({k: getattr(tracker.state, k) for k in names})   # read after the run
+        t0 = time.perf_counter()
+        out = tracker.track(im)           # reads back box, scores and flag: ends in a sync
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        after.append({k: getattr(tracker.state, k) for k in names})
+    torch.cuda.synchronize()
+    hist = _report_frames(tag, frame_ms, init_ms, outs, FLAG_NAMES)
+    st = tracker.state
+    for field in ("pos", "target_sz", "target_filter", "mem_weights", "mem_certainties",
+                  "prev_cand_desc", "scale_history"):
+        check(bool(torch.isfinite(getattr(st, field)).all()), f"non-finite {tag} state {field}")
+    n_valid = [int(a["prev_cand_valid"].sum()) for a in after]
+    new_id = [i + 1 for i, (b, a) in enumerate(zip(before, after))
+              if bool(b["assoc_active"]) and bool(a["assoc_active"])
+              and int(a["assoc_id_cntr"]) > int(b["assoc_id_cntr"])]
+    rescaled, rescale_err = [], 0.0
+    for i, (b, a, o) in enumerate(zip(before, after, outs)):
+        if o["flag"] == "not_found" and int(b["scale_history_n"]) > 0:
+            want = expected_rescale(b["scale_history"].tolist(), int(b["scale_history_n"]),
+                                    int(a["target_not_found_counter"]), float(b["target_scale"]))
+            rescaled.append(i + 1)
+            rescale_err = max(rescale_err, abs(float(a["target_scale"]) - want) / want)
+    peaks = np.asarray([o["max_score"] for o in outs])
+    print(f"{tag}: flags {hist}; candidate score peaks min/median/max {peaks.min():.4f} / "
+          f"{np.median(peaks):.4f} / {peaks.max():.4f}; valid candidates per frame "
+          f"{dict(sorted(collections.Counter(n_valid).items()))}; frames with a new object id "
+          f"from the association {new_id[:10]}{'...' if len(new_id) > 10 else ''} "
+          f"({len(new_id)}); lost frames rescaled from the history {rescaled[:10]}"
+          f"{'...' if len(rescaled) > 10 else ''} ({len(rescaled)}, scale max rel err "
+          f"{rescale_err:.1e}); last box {[round(x, 1) for x in outs[-1]['target_bbox']]}",
+          flush=True)
+    check(rescale_err <= 1e-5, f"{tag}: the rescaled scale is not the history's mean")
+    if full_checks:
+        check(max(n_valid) >= 2, f"{tag}: no frame with two valid candidates")
+        check(len(new_id) > 0, f"{tag}: the association assigned no new object id")
+        check(len(rescaled) > 0, f"{tag}: no lost frame rescaled the search area")
+    _check_one_sync(tag, tracker, frames[n_frames + 1:])
+    k1 = fused_mha.fused_self_attention.launches - k1_before
+    print(f"{tag}: fused_self_attention launches {k1} (expected 0)", flush=True)
+    check(k1 == 0, f"{tag}: K1 launched {k1} times")
+    return spec, tracker
+
+
+def keep_track_compare(gpu_state, cpu_state):
+    """KeepTrack's gate beyond DiMP's: the association state equal."""
+    for name in ("assoc_object_ids", "assoc_selected_oid", "assoc_flag", "prev_cand_valid"):
+        a, b = getattr(gpu_state, name).cpu(), getattr(cpu_state, name)
+        check(torch.equal(a, b), f"keep_track_gate: {name} differs: card {a.tolist()}, CPU "
+              f"{b.tolist()}")
+    return (f"object ids {gpu_state.assoc_object_ids.tolist()}, selected "
+            f"{int(gpu_state.assoc_selected_oid)}, association flag {int(gpu_state.assoc_flag)}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -970,6 +1283,33 @@ def main():
         phase_gate(swin_spec, tamosnet_swin_base, tag="tamos_swin_gate")
         phase = "tamos_swin_profile"
         phase_profile(swin_tracker, tag="tamos_swin_profile")
+        del swin_spec, swin_tracker
+        phase = "kys"
+        kys, kys_tracker = phase_kys()
+        phase = "kys_gate"
+        from pytracking_tpu_torch.trackers.kys import KYSTracker
+        phase_dimp_gate(kys, tag=phase, n_frames=FAMILY_GATE_FRAMES, limit_px=DIMP_GATE_PX,
+                        tracker_cls=KYSTracker, compare=kys_compare)
+        phase = "kys_profile"
+        t_next = kys_tracker.state.frame_num
+        kernel["launches_by_path"]["kys"] = phase_profile(
+            kys_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)], tag=phase)
+        check(kernel["launches_by_path"]["kys"] == 0, "K1 launched on the KYS path")
+        del kys, kys_tracker
+        phase = "keep_track"
+        kt, kt_tracker = phase_keep_track()
+        phase = "keep_track_gate"
+        from pytracking_tpu_torch.trackers.keep_track import KeepTrackTracker
+        phase_dimp_gate(kt, tag=phase, n_frames=FAMILY_GATE_FRAMES, limit_px=RELATIVE_GATE_PX,
+                        tracker_cls=KeepTrackTracker, compare=keep_track_compare)
+        phase = "keep_track_profile"
+        t_next = kt_tracker.state.frame_num
+        kernel["launches_by_path"]["keep_track"] = phase_profile(
+            kt_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)], tag=phase)
+        check(kernel["launches_by_path"]["keep_track"] == 0, "K1 launched on the KeepTrack path")
+        del kt, kt_tracker
+        phase = "keep_track_fast"
+        phase_keep_track("default_fast", phase, SHORT_FRAMES, full_checks=False)
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

@@ -21,6 +21,18 @@ from pytracking_tpu_torch.ops.distance import distance_map
 from pytracking_tpu_torch.ops.filter import apply_feat_transpose, apply_filter
 
 
+def initial_label_map_w(d: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The label map's initial per-bin weights over bin distances `d`: a
+    Gaussian of `sigma` less its least value, or one-hot on bin 0 when
+    sigma is 0."""
+    if sigma == 0:
+        init_gauss = torch.zeros_like(d)
+        init_gauss[0] = 1.0
+    else:
+        init_gauss = torch.exp(-0.5 * (d / sigma) ** 2)
+    return init_gauss - init_gauss.min()
+
+
 class DiMPSteepestDescentGN(nn.Module):
     """Steepest descent with a Gauss-Newton step length on the learned
     residual: label map y, target mask m (through a sigmoid) and spatial
@@ -45,8 +57,7 @@ class DiMPSteepestDescentGN(nn.Module):
         self.log_step_length = nn.Parameter(torch.full((1,), math.log(init_step_length)))
         self.filter_reg = nn.Parameter(torch.full((1,), float(init_filter_reg)))
         d = torch.arange(num_dist_bins, dtype=torch.float32) * bin_displacement
-        init_gauss = torch.exp(-0.5 * (d / init_gauss_sigma) ** 2)
-        self.label_map_w = nn.Parameter(init_gauss - init_gauss.min())
+        self.label_map_w = nn.Parameter(initial_label_map_w(d, init_gauss_sigma))
         self.target_mask_w = nn.Parameter(mask_init_factor * torch.tanh(2.0 - d))
         self.spatial_weight_w = nn.Parameter(torch.ones(num_dist_bins))
 
@@ -129,8 +140,13 @@ class PrDiMPSteepestDescentNewton(nn.Module):
         d0 = (torch.arange(H, dtype=torch.float32, device=dev)[None, :] - center[:, 0:1]) ** 2
         d1 = (torch.arange(W, dtype=torch.float32, device=dev)[None, :] - center[:, 1:2]) ** 2
         s2 = self.gauss_sigma ** 2
-        g0 = torch.exp(-d0 / (2 * s2)) / (2 * math.pi * s2)
-        g1 = torch.exp(-d1 / (2 * s2))
+        if s2 == 0:
+            # one-hot at the nearest cell on each axis
+            g0 = (d0 == d0.min(dim=1, keepdim=True).values).float()
+            g1 = (d1 == d1.min(dim=1, keepdim=True).values).float()
+        else:
+            g0 = torch.exp(-d0 / (2 * s2)) / (2 * math.pi * s2)
+            g1 = torch.exp(-d1 / (2 * s2))
         gauss = g0[:, :, None] * g1[:, None, :]
         gauss = gauss * (gauss > self.label_threshold)
         if self.normalize_label:

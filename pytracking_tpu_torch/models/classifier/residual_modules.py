@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pytracking_tpu_torch.models.classifier.optimizer import initial_label_map_w
 from pytracking_tpu_torch.models.meta.steepestdescent import gn_steepest_descent
 from pytracking_tpu_torch.ops import activation as act
 from pytracking_tpu_torch.ops.distance import distance_map
@@ -41,9 +42,8 @@ class GNSteepestDescentDiMP(nn.Module):
         self.act_param = act_param or 1.0
 
         d = torch.arange(num_dist_bins, dtype=torch.float32) * bin_displacement
-        init_gauss = torch.exp(-0.5 * (d / init_gauss_sigma) ** 2)
         self.filter_reg = nn.Parameter(torch.full((1,), float(init_filter_reg)))
-        self.label_map_w = nn.Parameter(init_gauss - init_gauss.min())
+        self.label_map_w = nn.Parameter(initial_label_map_w(d, init_gauss_sigma))
         self.target_mask_w = nn.Parameter(mask_init_factor * torch.tanh(2.0 - d))
         self.spatial_weight_w = nn.Parameter(torch.ones(num_dist_bins))
 

@@ -65,18 +65,22 @@ class BatchNorm(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """conv -> BatchNorm -> ReLU. Submodules carry flax's automatic names
+    """conv -> [BatchNorm] -> [ReLU]. Submodules carry flax's automatic names
     (`Conv_0`, `BatchNorm_0`) so the weight converter maps them one to one."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 padding: Optional[int] = None):
+                 padding: Optional[int] = None, batch_norm: bool = True, relu: bool = True):
         super().__init__()
         pad = kernel_size // 2 if padding is None else padding
+        self.relu = relu
         self.Conv_0 = nn.Conv2d(in_channels, out_channels, kernel_size, padding=pad)
-        self.BatchNorm_0 = BatchNorm(out_channels)
+        self.BatchNorm_0 = BatchNorm(out_channels) if batch_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        x = self.Conv_0(x)
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        return F.relu(x) if self.relu else x
 
 
 class LinearBlock(nn.Module):

@@ -55,13 +55,14 @@ class DiMPnet(nn.Module):
 def init_weights(net: DiMPnet, generator: torch.Generator) -> DiMPnet:
     """Random weights drawn from `generator` with the JAX package's
     initialisers: lecun-normal for the convolutions of residual blocks (the
-    backbone's and the classification feature's `block{i}`), he-normal for
-    every other convolution and dense kernel, zero biases, identity
-    BatchNorm. The optimisers' parameters keep their structured initial
-    values."""
+    backbone's and the classification feature's `block{i}`) and for KYS's
+    predictor convolutions outside its conv blocks, he-normal for every
+    other convolution and dense kernel, zero biases, identity BatchNorm.
+    The optimisers' parameters keep their structured initial values."""
     for name, m in net.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            lecun = name.startswith(("feature_extractor.", "classifier.feature_extractor.block"))
+            lecun = name.startswith(("feature_extractor.", "classifier.feature_extractor.block")) \
+                or (name.startswith("predictor.") and not name.endswith(".Conv_0"))
             trunc_normal_fan_in(m.weight, 1.0 if lecun else 2.0, generator)
             if m.bias is not None:
                 m.bias.zero_()

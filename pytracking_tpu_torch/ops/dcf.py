@@ -1,6 +1,6 @@
 """Hann windows, Gaussian labels and 2-D argmax (counterpart of
-pytracking_tpu/ops/dcf.py: `hann1d`, `hann2d`, `gauss_1d`, `gauss_2d`,
-`max2d`)."""
+pytracking_tpu/ops/dcf.py: `hann1d`, `hann2d`, `hann2d_clipped`, `gauss_1d`,
+`gauss_2d`, `max2d`)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def hann1d(sz: int, device=None) -> torch.Tensor:
@@ -19,6 +20,26 @@ def hann1d(sz: int, device=None) -> torch.Tensor:
 def hann2d(sz: Tuple[int, int], device=None) -> torch.Tensor:
     """Outer-product 2-D Hann window, (H, W)."""
     return hann1d(sz[0], device=device)[:, None] * hann1d(sz[1], device=device)[None, :]
+
+
+def hann2d_clipped(sz: Tuple[int, int], effective_sz: Tuple[int, int],
+                   device=None) -> torch.Tensor:
+    """2-D Hann window of `effective_sz`, centre-cropped to `sz` where it is
+    larger and edge-padded to `sz` where it is smaller, (H, W)."""
+    eh, ew = effective_sz
+    win = hann2d((eh, ew), device=device)
+    if eh > sz[0]:
+        t = (eh - sz[0]) // 2
+        win = win[t:t + sz[0], :]
+        eh = sz[0]
+    if ew > sz[1]:
+        left = (ew - sz[1]) // 2
+        win = win[:, left:left + sz[1]]
+        ew = sz[1]
+    pad_t = (sz[0] - eh) // 2
+    pad_l = (sz[1] - ew) // 2
+    pad = (pad_l, sz[1] - ew - pad_l, pad_t, sz[0] - eh - pad_t)
+    return F.pad(win[None, None], pad, mode="replicate")[0, 0]
 
 
 def gauss_1d(sz: int, sigma: torch.Tensor, center: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ buckets and jit plumbing are XLA machinery and have no counterpart here.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -35,9 +35,11 @@ def masked_slot_set(buf: torch.Tensor, ind: torch.Tensor, value: torch.Tensor,
 
 @dataclass
 class TrackerSpec:
-    """What a parameter module returns: tracker parameters and the network."""
+    """What a parameter module returns: tracker parameters, the network and
+    further keyword arguments of the tracker (KeepTrack's matching net)."""
     params: Any
     net: nn.Module
+    tracker_kwargs: Dict[str, Any] = field(default_factory=dict)
 
 
 class BaseTracker:

@@ -158,6 +158,9 @@ def _get_iounet_box(pos, sz, sample_pos, sample_scale, img_sample_sz) -> torch.T
 class DiMPTracker(BaseTracker):
     """One instance tracks one target in one sequence."""
 
+    # the step honours params.defer_classifier_update
+    supports_deferred_classifier_update = True
+
     def __init__(self, params: DiMPParams, net, device="cuda"):
         super().__init__(params, device)
         self.net = net.to(self.device).eval().requires_grad_(False)
@@ -526,9 +529,10 @@ class DiMPTracker(BaseTracker):
     # ---------------------------------------------------------------- memory
 
     def _update_memory_masked(self, state: DiMPState, sample, target_box, lr,
-                              do_update) -> DiMPState:
+                              do_update, replace_key=None) -> DiMPState:
         """Weighted-replacement ring-buffer update, masked by `do_update`:
-        the new sample replaces the lightest slot after the initial ones."""
+        the new sample replaces the slot after the initial ones with the
+        least `replace_key` (the weight when none is given)."""
         p = self.params
         M = p.sample_memory_size
         sw = state.mem_weights
@@ -538,7 +542,8 @@ class DiMPTracker(BaseTracker):
 
         idx = torch.arange(M, device=self.device)
         s_ind = num_init if init_w > 0 else 0
-        r_ind_full = torch.argmin(torch.where(idx >= s_ind, sw, math.inf))
+        key = sw if replace_key is None else replace_key
+        r_ind_full = torch.argmin(torch.where(idx >= s_ind, key, math.inf))
         r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)
 
         prev = state.prev_ind

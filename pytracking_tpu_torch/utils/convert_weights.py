@@ -1,5 +1,5 @@
-"""Flax variables of the JAX package's TaMOsNet, ToMPnet and DiMPnet ->
-state_dicts of the port's nets.
+"""Flax variables of the JAX package's TaMOsNet, ToMPnet, DiMPnet, KYSNet and
+KeepTrack's target candidate matching net -> state_dicts of the port's nets.
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree as
 nested dicts of numpy arrays (np.asarray of each leaf), so this module
@@ -14,7 +14,10 @@ imports no JAX. Conversions:
     relative position bias tables keep their names and shapes;
   * IoU-Net's LinearBlock Dense kernels flatten NHWC RoIs in (h, w, c)
     order, the port flattens (c, h, w): their rows are permuted (DiMP);
-  * the DiMP optimiser's parameters keep their names and shapes.
+  * the DiMP optimiser's parameters keep their names and shapes;
+  * KYS's response predictor and the matching net's SuperGlue are plain
+    convolutions, dense layers and BatchNorms under the flax names; the
+    matcher's scalar `bin_score` keeps its name.
 Every flax leaf is consumed by construction (an unknown one raises); with
 `net` given, the result must hold exactly the net's keys and shapes.
 """
@@ -81,7 +84,7 @@ def _convert_leaf(module_path: tuple, leaf: str, arr: np.ndarray) -> tuple:
         return "running_mean", arr
     if leaf == "var":
         return "running_var", arr
-    if leaf in ("query_embed_fg", "query_embed_test", "rel_pos_bias"):
+    if leaf in ("query_embed_fg", "query_embed_test", "rel_pos_bias", "bin_score"):
         return leaf, arr
     raise KeyError(f"unknown flax leaf {'/'.join(module_path + (leaf,))}")
 
@@ -123,18 +126,19 @@ def tamosnet_from_flax(variables: Mapping,
     """Convert the flax variables of a TaMOsNet (ResNet-50 or Swin-Base
     backbone) into the port's state_dict. With `net`, raise unless the keys
     and shapes are exactly the net's."""
-    return _transformer_net_from_flax(variables, net)
+    return _net_from_flax(variables, net)
 
 
 def tompnet_from_flax(variables: Mapping,
                       net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """Convert the flax variables of a ToMPnet into the port's state_dict.
     With `net`, raise unless the keys and shapes are exactly the net's."""
-    return _transformer_net_from_flax(variables, net)
+    return _net_from_flax(variables, net)
 
 
-def _transformer_net_from_flax(variables: Mapping,
-                               net: Optional[nn.Module]) -> Dict[str, torch.Tensor]:
+def _net_from_flax(variables: Mapping, net: Optional[nn.Module]) -> Dict[str, torch.Tensor]:
+    """Each flax leaf under its module path as the torch name, the scanned
+    encoder/decoder stacks unstacked."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _flat_variables(variables).items():
         module_path, leaf = path[:-1], path[-1]
@@ -176,3 +180,20 @@ def dimpnet_from_flax(variables: Mapping,
         _put(sd, ".".join(module_path + (tname,)), tarr)
     _check_against(sd, net)
     return sd
+
+
+def kysnet_from_flax(variables: Mapping,
+                     net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a KYSNet (the DiMPnet tree merged with
+    the response predictor's `predictor` tree) into the port's state_dict.
+    With `net`, raise unless the keys and shapes are exactly the net's."""
+    return dimpnet_from_flax(variables, net)
+
+
+def tcmnet_from_flax(variables: Mapping,
+                     net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a TargetCandidateMatchingNetwork (its
+    ResNet, the descriptor conv, the SuperGlue graph net, `final_proj` and
+    `bin_score`) into the port's state_dict. With `net`, raise unless the
+    keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)

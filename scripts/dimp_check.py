@@ -33,7 +33,6 @@ record_function, over a few frames after chip_smoke.py's 110.
 import collections
 import copy
 import dataclasses
-import functools
 import importlib
 import os
 import sys
@@ -141,52 +140,37 @@ def gate(args):
         print(line, flush=True)
 
 
-STAGES = {  # label: (object path from the tracker, method)
-    "backbone": ("net", "extract_backbone"),
-    "classification feature": ("net", "extract_classification_feat"),
-    "classification scores": ("net.classifier", "classify"),
-    "localisation": ("", "_localize"),
-    "box refinement (IoU features, ascent steps)": ("", "_refine_target_box"),
-    "memory update": ("", "_update_memory_masked"),
-    "classifier refit": ("", "_update_classifier"),
-}
-
-
-def stages(args):
+def profile_stages(tracker, stage_table, warm_frames, frames, label):
+    """Host time, device kernel time and kernel launches per frame by stage
+    under torch.profiler, over `frames` after `warm_frames` (the tracker is
+    initialised). `stage_table`: label -> (object, attribute), each a method
+    or function that the step calls through that attribute; its calls are
+    marked with record_function. A kernel belongs to the stages whose host
+    span holds its launch, on any thread (autograd runs the backward on its
+    own thread); a kernel listed under its launch call and again under the
+    op around it counts once, at the innermost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    param, args = _param_name(args)
-    n = int(args[0]) if args else 5
-    spec = chip_smoke.dimp_spec(param)
-    n_frames = chip_smoke.DIMP_FAMILY[param][3]
-    tracker = t_dimp.DiMPTracker(spec.params, spec.net, device="cuda")
-    for label, (path, name) in STAGES.items():
-        obj = functools.reduce(getattr, path.split("."), tracker) if path else tracker
+    for stage, (obj, name) in stage_table.items():
         fn = getattr(obj, name)
 
-        def marked(*a, fn=fn, label=label, **kw):
-            with record_function(label):
+        def marked(*a, fn=fn, stage=stage, **kw):
+            with record_function(stage):
                 return fn(*a, **kw)
 
         setattr(obj, name, marked)
-    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    frames = [chip_smoke.dimp_frame(bg, t) for t in range(n_frames + n + 1)]
-    tracker.initialize(frames[0], chip_smoke.DIMP_INIT)
-    for im in frames[1:n_frames + 1]:
+    for im in warm_frames:
         tracker.track(im)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for im in frames[n_frames + 1:]:
+        for im in frames:
             with record_function("frame"):
                 tracker.track(im)
-    # a kernel belongs to the stages whose host span holds its launch, on
-    # any thread (autograd runs the backward on its own thread); a kernel
-    # listed under its launch call and again under the op around it counts
-    # once, at the innermost
+    n = len(frames)
     rows = collections.defaultdict(lambda: [0.0, 0, 0.0])     # host us, kernels, device us
     events = prof.events()
-    spans = [e for e in events if (e.name in STAGES or e.name == "frame")
+    spans = [e for e in events if (e.name in stage_table or e.name == "frame")
              and e.device_type == DeviceType.CPU]     # not their copies on the device timeline
     for e in spans:
         rows[e.name][0] += e.time_range.elapsed_us()
@@ -198,15 +182,41 @@ def stages(args):
                 rows[span.name][1] += len(e.kernels)
                 rows[span.name][2] += sum(k.duration for k in e.kernels)
     fh, fk, fd = rows["frame"]
-    print(f"{param} stages over {n} frames (per frame, under the profiler): host "
+    print(f"{label} stages over {n} frames (per frame, under the profiler): host "
           f"{fh / n / 1e3:.3f} ms, "
           f"{fk / n:.0f} kernels, device {fd / n / 1e3:.3f} ms", flush=True)
-    rest = [fh - sum(rows[x][0] for x in STAGES), fk - sum(rows[x][1] for x in STAGES),
-            fd - sum(rows[x][2] for x in STAGES)]
-    for label, (h, k, d) in [(x, rows[x]) for x in STAGES] + [("rest (crop, readback)", rest)]:
-        print(f"  {label:48s} host {h / n / 1e3:8.3f} ms ({100 * h / fh:4.1f}%)  "
+    rest = [fh - sum(rows[x][0] for x in stage_table), fk - sum(rows[x][1] for x in stage_table),
+            fd - sum(rows[x][2] for x in stage_table)]
+    for stage, (h, k, d) in [(x, rows[x]) for x in stage_table] + \
+            [("rest (crop, readback)", rest)]:
+        print(f"  {stage:48s} host {h / n / 1e3:8.3f} ms ({100 * h / fh:4.1f}%)  "
               f"kernels {k / n:6.1f} ({100 * k / max(fk, 1):4.1f}%)  device {d / n / 1e3:7.3f} ms",
               flush=True)
+
+
+def dimp_stage_table(tracker):
+    """DiMP's stages: label -> (object, attribute)."""
+    net = tracker.net
+    return {"backbone": (net, "extract_backbone"),
+            "classification feature": (net, "extract_classification_feat"),
+            "classification scores": (net.classifier, "classify"),
+            "localisation": (tracker, "_localize"),
+            "box refinement (IoU features, ascent steps)": (tracker, "_refine_target_box"),
+            "memory update": (tracker, "_update_memory_masked"),
+            "classifier refit": (tracker, "_update_classifier")}
+
+
+def stages(args):
+    param, args = _param_name(args)
+    n = int(args[0]) if args else 5
+    spec = chip_smoke.dimp_spec(param)
+    n_frames = chip_smoke.DIMP_FAMILY[param][3]
+    tracker = t_dimp.DiMPTracker(spec.params, spec.net, device="cuda")
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [chip_smoke.dimp_frame(bg, t) for t in range(n_frames + n + 1)]
+    tracker.initialize(frames[0], chip_smoke.DIMP_INIT)
+    profile_stages(tracker, dimp_stage_table(tracker), frames[1:n_frames + 1],
+                   frames[n_frames + 1:], param)
 
 
 def main():

@@ -470,3 +470,43 @@ def test_full_width_converter_maps_every_leaf(name):
         np.testing.assert_allclose(
             getattr(tnet.classifier.filter_optimizer, leaf).detach().numpy(), value,
             rtol=2e-7, atol=1e-7)
+
+
+# sigma = 0: the label map's initial weights are one-hot on bin 0 (the two
+# GN optimisers), PrDiMP's label density one-hot at the nearest cell
+ZERO_SIGMA = {
+    "dimp_gn": ("DiMPSteepestDescentGN", dict(GN_KW, init_gauss_sigma=0.0)),
+    "prdimp_newton": ("PrDiMPSteepestDescentNewton", dict(NEWTON_KW, gauss_sigma=0.0)),
+    "simple_gn": ("GNSteepestDescentDiMP", dict(SIMPLE_KW, init_gauss_sigma=0.0)),
+}
+
+
+@pytest.mark.parametrize("site", list(ZERO_SIGMA))
+def test_zero_sigma_labels_match_jax(site):
+    from pytracking_tpu.models.classifier import optimizer as j_optimizer
+    from pytracking_tpu.models.classifier import residual_modules as j_residual
+
+    cls, kw = ZERO_SIGMA[site]
+    jcls = getattr(j_optimizer, cls, None) or getattr(j_residual, cls)
+    tcls = getattr(t_optimizer, cls, None) or TGNSteepestDescentDiMP
+    feat, w0, bb, sw = _filter_problem(11)
+    jm = jcls(**kw)
+    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(w0), jnp.asarray(feat),
+                        jnp.asarray(bb))
+    ref = jm.apply(variables, jnp.asarray(w0), jnp.asarray(feat), jnp.asarray(bb),
+                   sample_weight=jnp.asarray(sw), num_iter=3)[0]
+    tm = tcls(**kw)
+    for name, value in variables["params"].items():      # the structured init
+        np.testing.assert_allclose(getattr(tm, name).detach().numpy(), value, rtol=2e-7,
+                                   atol=1e-7)
+    if site == "prdimp_newton":
+        center = _t(np.random.RandomState(3).rand(5, 2) * 6)
+        dens = tm.get_label_density(center, (7, 7))
+        jdens = jm.apply(variables, jnp.asarray(center.numpy()), (7, 7),
+                         method=lambda m, c, o: m.get_label_density(c, o))[..., 0]
+        assert torch.isfinite(dens).all()
+        _close(dens.numpy(), jdens)
+    with torch.no_grad():
+        got = tm(_t(_filt(w0)), _nchw(feat), _t(bb), sample_weight=_t(sw), num_iter=3)
+    assert torch.isfinite(got).all()
+    _close(got.numpy(), _filt(ref))

@@ -1,6 +1,7 @@
 """The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
-scripts/tomp_check.py) import no JAX, no
+scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py)
+import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
@@ -17,7 +18,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
-PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py")
+PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py", "kys_check.py",
+                "keep_track_check.py")
 
 
 def _port_sources():
@@ -128,6 +130,27 @@ def test_entry_points_raise_without_cuda():
             mod.parameters()
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.parameters(device="cuda", dtype=torch.bfloat16)
+    from pytracking_tpu_torch.models.tcm.target_candidate_matching import \
+        target_candidate_matching_net_resnet50
+    from pytracking_tpu_torch.models.tracking.kysnet import kysnet_res50
+    from pytracking_tpu_torch.trackers.keep_track import KeepTrackParams, KeepTrackTracker
+    from pytracking_tpu_torch.trackers.kys import KYSParams, KYSTracker
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kysnet_res50()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        target_candidate_matching_net_resnet50()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KYSTracker(KYSParams(), torch.nn.Linear(1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KeepTrackTracker(KeepTrackParams(), torch.nn.Linear(1, 1), torch.nn.Linear(1, 1))
+    for module in ("kys.default", "kys.default_vot", "keep_track.default",
+                   "keep_track.default_fast"):
+        mod = importlib.import_module(f"pytracking_tpu_torch.parameter.{module}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters(device="cuda", seed=1)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
