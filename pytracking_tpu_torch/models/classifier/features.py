@@ -13,9 +13,10 @@ from pytracking_tpu_torch.models.layers.blocks import instance_l2_norm
 
 
 class _ResidualFeatures(nn.Module):
-    def _final(self, in_dim: int, out_dim: int, final_conv: bool, norm_scale: float) -> None:
-        self.final_conv = Conv2d(in_dim, out_dim, 3, padding=1, bias=False) \
-            if final_conv else None
+    def _final(self, in_dim: int, out_dim: int, final_conv: bool, norm_scale: float,
+               final_stride: int = 1) -> None:
+        self.final_conv = Conv2d(in_dim, out_dim, 3, stride=final_stride, padding=1,
+                                 bias=False) if final_conv else None
         self.norm_scale = norm_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -29,10 +30,12 @@ class _ResidualFeatures(nn.Module):
 class ResidualBottleneck(_ResidualFeatures):
     """`num_blocks` Bottlenecks (width `feature_dim`; the last one
     `out_dim // 4` when there is no final conv), then the final conv to
-    `out_dim`. DiMP-50's is no block and the final conv 1024 -> 512."""
+    `out_dim` with stride `final_stride`. DiMP-50's is no block and the final
+    conv 1024 -> 512; RTS's classifier takes the same conv at stride 2."""
 
     def __init__(self, in_dim: int = 1024, out_dim: int = 256, norm_scale: float = 1.0,
-                 feature_dim: int = 256, num_blocks: int = 0, final_conv: bool = True):
+                 feature_dim: int = 256, num_blocks: int = 0, final_conv: bool = True,
+                 final_stride: int = 1):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
@@ -40,7 +43,7 @@ class ResidualBottleneck(_ResidualFeatures):
             self.add_module(f"block{i}", Bottleneck(in_dim, planes,
                                                     downsample=in_dim != planes * 4))
             in_dim = planes * 4
-        self._final(in_dim, out_dim, final_conv, norm_scale)
+        self._final(in_dim, out_dim, final_conv, norm_scale, final_stride)
 
 
 class ResidualBasicBlock(_ResidualFeatures):

@@ -27,11 +27,13 @@ class LinearFilter(nn.Module):
         return self.feature_extractor(feat)
 
     def get_filter(self, feat: torch.Tensor, bb: torch.Tensor, num_iter=None,
-                   sample_weight=None) -> torch.Tensor:
+                   sample_weight=None, **opt_kwargs) -> torch.Tensor:
         """feat (N, S, C, H, W), bb (N, S, 4) -> the optimised filter
-        (S, 1, C, fs, fs)."""
+        (S, 1, C, fs, fs). Further keyword arguments (the hinge optimiser's
+        `train_label`) go to the optimiser."""
         return self.filter_optimizer(self.filter_initializer(feat, bb), feat, bb,
-                                     sample_weight=sample_weight, num_iter=num_iter)
+                                     sample_weight=sample_weight, num_iter=num_iter,
+                                     **opt_kwargs)
 
     def classify(self, weights: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
         """Scores of feat (S, C, H, W) -> (S, 1, Ho, Wo), or (N, S, C, H, W)

@@ -37,9 +37,10 @@ class BatchNorm(nn.Module):
     arithmetic is float32 and the result takes the input's dtype, as flax's
     BatchNorm with a compute dtype gives. With `param_dtype` bfloat16 (the
     statistics and affine parameters stored as bf16 values, as the JAX
-    package's bf16 mode stores them) a bf16 input is normalised in bf16
-    arithmetic, step by step as flax does: (x - mean) * (rsqrt(var + eps) *
-    scale) + bias."""
+    package's bf16 mode stores them) the step order is flax's,
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, with the multiplier in
+    bf16 arithmetic: a bf16 input is normalised in bf16 throughout, a
+    float32 input in float32 around that bf16 multiplier."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, dim: int = 1):
         super().__init__()
@@ -54,7 +55,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1] * x.dim()
         shape[self.dim] = -1
-        if torch.promote_types(x.dtype, self.param_dtype) == torch.bfloat16:
+        if self.param_dtype == torch.bfloat16:
             dt = torch.bfloat16
             mul = torch.rsqrt(self.running_var.to(dt) + self.eps) * self.weight.to(dt)
             return (x - self.running_mean.to(dt).view(shape)) * mul.view(shape) \
@@ -69,11 +70,13 @@ class ConvBlock(nn.Module):
     (`Conv_0`, `BatchNorm_0`) so the weight converter maps them one to one."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 padding: Optional[int] = None, batch_norm: bool = True, relu: bool = True):
+                 padding: Optional[int] = None, batch_norm: bool = True, relu: bool = True,
+                 stride: int = 1):
         super().__init__()
         pad = kernel_size // 2 if padding is None else padding
         self.relu = relu
-        self.Conv_0 = nn.Conv2d(in_channels, out_channels, kernel_size, padding=pad)
+        self.Conv_0 = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                                padding=pad)
         self.BatchNorm_0 = BatchNorm(out_channels) if batch_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

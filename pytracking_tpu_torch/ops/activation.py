@@ -26,8 +26,10 @@ def mlu(x: torch.Tensor, min_val: float) -> torch.Tensor:
 
 def leaky_relu_par(x: torch.Tensor, a) -> torch.Tensor:
     """Parametric leaky ReLU (1-a)/2 |x| + (1+a)/2 x; DiMP's target mask is
-    the slope a."""
-    return (1.0 - a) / 2.0 * torch.abs(x) + (1.0 + a) / 2.0 * x
+    the slope a. |x| is written so that its derivative at 0 is +1, JAX's
+    convention for `abs` (torch's is 0): the Jacobian products of RTS's
+    hinge descent meet exact zeros where the filter's taps are zero."""
+    return (1.0 - a) / 2.0 * torch.where(x >= 0, x, -x) + (1.0 + a) / 2.0 * x
 
 
 def leaky_relu_par_deriv(x: torch.Tensor, a) -> torch.Tensor:

@@ -42,23 +42,27 @@ def hann2d_clipped(sz: Tuple[int, int], effective_sz: Tuple[int, int],
     return F.pad(win[None, None], pad, mode="replicate")[0, 0]
 
 
-def gauss_1d(sz: int, sigma: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """Sampled 1-D Gaussians on the grid -(sz-1)/2, ..., (sz-1)/2, centred at
-    `center`. sigma and center broadcast: returns (..., sz)."""
-    k = torch.arange(sz, dtype=torch.float32, device=center.device) - (sz - 1) / 2
+def gauss_1d(sz: int, sigma: torch.Tensor, center: torch.Tensor,
+             end_pad: int = 0) -> torch.Tensor:
+    """Sampled 1-D Gaussians on the grid -(sz-1)/2, ..., (sz-1)/2 + end_pad,
+    centred at `center`. sigma and center broadcast: returns
+    (..., sz + end_pad)."""
+    k = torch.arange(sz + end_pad, dtype=torch.float32, device=center.device) - (sz - 1) / 2
     return torch.exp(-1.0 / (2.0 * sigma[..., None] ** 2) * (k - center[..., None]) ** 2)
 
 
-def gauss_2d(sz: Tuple[int, int], sigma, center: torch.Tensor) -> torch.Tensor:
+def gauss_2d(sz: Tuple[int, int], sigma, center: torch.Tensor,
+             end_pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Separable 2-D Gaussian labels. center (N, 2) as (y, x); sigma a scalar,
-    a (2,) pair or (N, 2) per centre. Returns (N, H, W)."""
+    a (2,) pair or (N, 2) per centre. Returns (N, H + end_pad[0],
+    W + end_pad[1])."""
     center = torch.as_tensor(center, dtype=torch.float32)
     if center.dim() == 1:
         center = center[None]
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=center.device)
     sigma = torch.broadcast_to(sigma, center.shape)
-    gy = gauss_1d(sz[0], sigma[:, 0], center[:, 0])
-    gx = gauss_1d(sz[1], sigma[:, 1], center[:, 1])
+    gy = gauss_1d(sz[0], sigma[:, 0], center[:, 0], end_pad[0])
+    gx = gauss_1d(sz[1], sigma[:, 1], center[:, 1], end_pad[1])
     return gy[:, :, None] * gx[:, None, :]
 
 

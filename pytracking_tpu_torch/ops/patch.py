@@ -5,7 +5,8 @@ with its three border modes).
 The crop and resize is separable: two dense weight-matrix products
 P = W_y · im · W_xᵀ, each row a normalised triangle filter whose width grows
 with the downscale factor (anti-aliasing), out-of-range mass clamped onto
-the border pixels. The image is (C, H, W) here; the coordinate convention
+the border pixels; a mask (`is_mask`) is sampled at the nearest pixel
+instead. The image is (C, H, W) here; the coordinate convention
 is the JAX package's: output pixel j of a patch centred at `pos` with extent
 `sample_sz` samples y(j) = pos_y + ((j + 0.5) / out_h - 0.5) * sample_sz_y.
 """
@@ -43,9 +44,10 @@ def _shrink_inside(pos: torch.Tensor, sample_sz: torch.Tensor, im_sz: torch.Tens
     """The 'inside' / 'inside_major' border modes: shrink the sample so that it
     fits the image along all axes ('inside') or the major one
     ('inside_major'), by at most `max_scale_change`, then shift it inside
-    along each axis where it fits (else centre it on the image)."""
+    along each axis where it fits (else centre it on the image). pos and
+    sample_sz are (..., 2), one sample per leading index."""
     shrink = sample_sz / im_sz
-    shrink = torch.max(shrink) if mode == "inside" else torch.min(shrink)
+    shrink = shrink.amax(-1, keepdim=True) if mode == "inside" else shrink.amin(-1, keepdim=True)
     shrink = torch.clamp(shrink, min=1.0, max=max_scale_change or None)
     sample_sz = sample_sz / shrink
     tl = pos - sample_sz / 2
@@ -56,26 +58,35 @@ def _shrink_inside(pos: torch.Tensor, sample_sz: torch.Tensor, im_sz: torch.Tens
 
 
 def _resample_weights(src_coords: torch.Tensor, src_size: int,
-                      spread: torch.Tensor) -> torch.Tensor:
-    """(out, src) matrix: row i is a triangle filter of width `spread` (>= 1)
-    centred at src_coords[i] (clamped into the image), normalised to sum 1."""
+                      spread) -> torch.Tensor:
+    """(..., out, src) matrix: row i is a triangle filter of width `spread`
+    (>= 1; a number or a (...) tensor) centred at src_coords[..., i]
+    (clamped into the image), normalised to sum 1."""
     grid = torch.arange(src_size, dtype=torch.float32, device=src_coords.device)
     c = torch.clamp(src_coords, 0.0, src_size - 1.0)
-    w = torch.clamp(1.0 - torch.abs(c[:, None] - grid[None, :]) / spread, min=0.0)
-    return w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-8)
+    if isinstance(spread, torch.Tensor):
+        spread = spread[..., None, None]
+    w = torch.clamp(1.0 - torch.abs(c[..., :, None] - grid) / spread, min=0.0)
+    return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-8)
 
 
 def sample_patch(im: torch.Tensor, pos: torch.Tensor, sample_sz: torch.Tensor,
                  output_sz: Tuple[int, int], mode: str = "replicate",
                  max_scale_change: Optional[float] = None,
-                 im_sz: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 im_sz: Optional[torch.Tensor] = None,
+                 is_mask: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Patch of extent `sample_sz` (y, x) centred at `pos` (y, x) from
     im (C, H, W), resampled to output_sz. Reads outside the image repeat the
     border pixels. `mode` 'inside' / 'inside_major' first shrink and shift
     the sample into the image of size `im_sz` (y, x) (default im's own).
+    With `is_mask` each output pixel takes the nearest image pixel, the
+    coordinate rounded half to even as `jnp.round` does.
 
-    Returns (patch (C, oh, ow) float32, coords (4,) = [tl_y, tl_x, br_y, br_x],
-    the extent actually sampled)."""
+    pos and sample_sz may carry leading batch dims (B, 2): then one patch
+    per sample, from im (C, H, W) or from its own image of im (B, C, H, W).
+
+    Returns (patch (..., C, oh, ow) float32, coords (..., 4) = [tl_y, tl_x,
+    br_y, br_x], the extent actually sampled)."""
     oh, ow = output_sz
     H, W = im.shape[-2], im.shape[-1]
     pos = pos.to(torch.float32)
@@ -90,10 +101,20 @@ def sample_patch(im: torch.Tensor, pos: torch.Tensor, sample_sz: torch.Tensor,
         raise ValueError(f"unknown sample_patch mode {mode!r}")
     j = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) / oh - 0.5
     i = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) / ow - 0.5
-    ys = pos[0] + j * sample_sz[0]
-    xs = pos[1] + i * sample_sz[1]
-    wy = _resample_weights(ys, H, torch.clamp(sample_sz[0] / oh, min=1.0))  # (oh, H)
-    wx = _resample_weights(xs, W, torch.clamp(sample_sz[1] / ow, min=1.0))  # (ow, W)
-    patch = torch.matmul(torch.matmul(wy, im.to(torch.float32)), wx.T)
-    coords = torch.cat([pos - sample_sz / 2, pos + sample_sz / 2])
+    ys = pos[..., 0:1] + j * sample_sz[..., 0:1]                   # (..., oh)
+    xs = pos[..., 1:2] + i * sample_sz[..., 1:2]                   # (..., ow)
+    coords = torch.cat([pos - sample_sz / 2, pos + sample_sz / 2], dim=-1)
+    if is_mask:
+        iy = torch.clamp(torch.round(ys), 0, H - 1).long()
+        ix = torch.clamp(torch.round(xs), 0, W - 1).long()
+        im = im.expand(iy.shape[:-1] + im.shape[-3:])       # one image per sample
+        rows = torch.take_along_dim(im, iy[..., None, :, None], dim=-2)
+        return torch.take_along_dim(rows, ix[..., None, None, :], dim=-1).to(torch.float32), \
+            coords
+    wy = _resample_weights(ys, H, torch.clamp(sample_sz[..., 0] / oh, min=1.0))  # (..., oh, H)
+    wx = _resample_weights(xs, W, torch.clamp(sample_sz[..., 1] / ow, min=1.0))  # (..., ow, W)
+    if pos.dim() == 1:
+        return torch.matmul(torch.matmul(wy, im.to(torch.float32)), wx.T), coords
+    patch = torch.matmul(torch.matmul(wy.unsqueeze(-3), im.to(torch.float32)),
+                         wx.unsqueeze(-3).transpose(-1, -2))
     return patch, coords

@@ -1,5 +1,6 @@
-"""Flax variables of the JAX package's TaMOsNet, ToMPnet, DiMPnet, KYSNet and
-KeepTrack's target candidate matching net -> state_dicts of the port's nets.
+"""Flax variables of the JAX package's TaMOsNet, ToMPnet, DiMPnet, KYSNet,
+KeepTrack's target candidate matching net, LWL's LWTLNet and LWTLBoxNet,
+STANet and RTSNet -> state_dicts of the port's nets.
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree as
 nested dicts of numpy arrays (np.asarray of each leaf), so this module
@@ -17,7 +18,10 @@ imports no JAX. Conversions:
   * the DiMP optimiser's parameters keep their names and shapes;
   * KYS's response predictor and the matching net's SuperGlue are plain
     convolutions, dense layers and BatchNorms under the flax names; the
-    matcher's scalar `bin_score` keeps its name.
+    matcher's scalar `bin_score` keeps its name;
+  * the LWL target models' `filter_reg` keeps its name and shape; STA's two
+    target models share one feature block, held under `target_model` in
+    both trees.
 Every flax leaf is consumed by construction (an unknown one raises); with
 `net` given, the result must hold exactly the net's keys and shapes.
 """
@@ -84,7 +88,8 @@ def _convert_leaf(module_path: tuple, leaf: str, arr: np.ndarray) -> tuple:
         return "running_mean", arr
     if leaf == "var":
         return "running_var", arr
-    if leaf in ("query_embed_fg", "query_embed_test", "rel_pos_bias", "bin_score"):
+    if leaf in ("query_embed_fg", "query_embed_test", "rel_pos_bias", "bin_score",
+                "filter_reg"):
         return leaf, arr
     raise KeyError(f"unknown flax leaf {'/'.join(module_path + (leaf,))}")
 
@@ -195,5 +200,35 @@ def tcmnet_from_flax(variables: Mapping,
     """Convert the flax variables of a TargetCandidateMatchingNetwork (its
     ResNet, the descriptor conv, the SuperGlue graph net, `final_proj` and
     `bin_score`) into the port's state_dict. With `net`, raise unless the
+    keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)
+
+
+def lwtlnet_from_flax(variables: Mapping,
+                      net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of an LWTLNet into the port's state_dict.
+    With `net`, raise unless the keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)
+
+
+def lwtlboxnet_from_flax(variables: Mapping,
+                         net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of an LWTLBoxNet (LWL's tree merged with
+    the box label encoder's) into the port's state_dict. With `net`, raise
+    unless the keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)
+
+
+def stanet_from_flax(variables: Mapping,
+                     net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of an STANet into the port's state_dict.
+    With `net`, raise unless the keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)
+
+
+def rtsnet_from_flax(variables: Mapping,
+                     net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of an RTSNet (the hinge optimiser has no
+    parameters) into the port's state_dict. With `net`, raise unless the
     keys and shapes are exactly the net's."""
     return _net_from_flax(variables, net)

@@ -1,6 +1,7 @@
 """The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
-scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py)
+scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
+scripts/lwl_check.py)
 import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
@@ -19,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
 PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py", "kys_check.py",
-                "keep_track_check.py")
+                "keep_track_check.py", "lwl_check.py")
 
 
 def _port_sources():
@@ -151,6 +152,27 @@ def test_entry_points_raise_without_cuda():
             mod.parameters()
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.parameters(device="cuda", seed=1)
+    from pytracking_tpu_torch.models.lwl.lwl_net import (steepest_descent_resnet50,
+                                                         steepest_descent_resnet50_boxinit)
+    from pytracking_tpu_torch.models.lwl.sta_net import sta_resnet50
+    from pytracking_tpu_torch.models.rts.rts_net import rts50
+    from pytracking_tpu_torch.trackers.lwl import LWLMultiObjectTracker, LWLParams, LWLTracker
+    from pytracking_tpu_torch.trackers.rts import RTSParams, RTSTracker
+
+    for ctor in (steepest_descent_resnet50, steepest_descent_resnet50_boxinit, sta_resnet50,
+                 rts50):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ctor()
+    for cls, params in ((LWLTracker, LWLParams()), (LWLMultiObjectTracker, LWLParams()),
+                        (RTSTracker, RTSParams())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(params, torch.nn.Linear(1, 1))
+    for module in ("lwl.lwl_ytvos", "lwl.lwl_boxinit", "rts.rts50"):
+        mod = importlib.import_module(f"pytracking_tpu_torch.parameter.{module}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters(device="cuda", seed=1, weights_bf16=True)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
