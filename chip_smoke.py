@@ -103,6 +103,31 @@ Phases (any failure exits non-zero and prints no result line):
               two classifier refits or more, one synchronisation per frame,
               K1 not launched; rts_gate (as lwl_gate, plus the lost counter
               and the classifier memory), rts_profile (K1: 0).
+ 25. atom     ATOM (`atom/default`) in IEEE float32 at full width (ResNet-18
+              to layer3, IoU-Net, 288x288, compressed_dim 64, memory 250; no
+              Pallas kernel on this path: the online classifier's GN-CG runs
+              on torch.func Jacobian products, the scores upsample through
+              cuFFT) on the DiMP sequence, 60 frames: one synchronisation per
+              frame, the periodic refits at frame_num 11, 21, ..., the score
+              peaks and flags, K1 not launched; atom_gate (card vs CPU,
+              single steps at frames 8-12 from the card's state, the refit at
+              frame_num 11 among them: flags, replace indices, boxes, the
+              filter within ATOM_FILTER_GATE of scale), atom_profile (K1: 0);
+              atom_prob_ml, atom_vot, atom_multiscale (15 frames + 5 with the
+              synchronisations counted);
+ 26. eco      ECO (`eco/default`) in IEEE float32 at full width
+              (ResNet18-VGG-m1 vggconv1 + layer3, 5 scales, memory 200; the
+              filters in the Fourier domain on complex64, PCA projections by
+              SVD in `initialize`), 60 frames: one synchronisation per frame,
+              the host-scheduled refits, K1 not launched; eco_gate (card vs
+              CPU: the init's P and hf after sign alignment, then single
+              steps at frames 8-12: scale index, boxes, score maps, filters),
+              eco_profile (K1: 0), eco_mobile3 (15 + 5 frames);
+ 27. dimp_bf16_gate, eco_bf16_gate  DiMP-50 bf16 (`dtype=torch.bfloat16`:
+              bf16 ResNet-50, weights rounded through bf16) and ECO's bf16
+              backbone against float32 on the card, 10 steps, each bf16 step
+              from the float32 tracker's state: the score maps' correlation,
+              max-score relative difference and argmax displacement.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -670,12 +695,12 @@ def _count_syncs(fn):
                  if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def dimp_spec(name, device="cuda"):
-    """The parameter module's spec (seed 0) at its smoke not-found
-    threshold."""
+def dimp_spec(name, device="cuda", **kw):
+    """The parameter module's spec (seed 0; `kw`: DiMP-50's dtype options)
+    at its smoke not-found threshold."""
     label, package, threshold, _, _ = DIMP_FAMILY[name]
     module = importlib.import_module(f"pytracking_tpu_torch.parameter.{package}.{name}")
-    spec = module.parameters(device=device, seed=0)
+    spec = module.parameters(device=device, seed=0, **kw)
     return dataclasses.replace(spec, params=dataclasses.replace(
         spec.params, target_not_found_threshold=threshold))
 
@@ -764,10 +789,15 @@ def phase_dimp(name="dimp50", tag="dimp", require_flags=()):
 
 
 def _state_to(state, device):
-    """A copy of a DiMP tracker state on `device`."""
-    return dataclasses.replace(state, **{
-        f.name: getattr(state, f.name).to(device, copy=True) for f in dataclasses.fields(state)
-        if isinstance(getattr(state, f.name), torch.Tensor)})
+    """A copy of a tracker state on `device` (its tensors, and the tensors
+    of its list fields: ECO's per-block filters and memory)."""
+    def to(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device, copy=True)
+        return [to(x) for x in v] if isinstance(v, list) else v
+
+    return dataclasses.replace(state, **{f.name: to(getattr(state, f.name))
+                                         for f in dataclasses.fields(state)})
 
 
 def phase_dimp_gate(spec, tag="dimp_gate", n_frames=DIMP_GATE_FRAMES, limit_px=DIMP_GATE_PX,
@@ -1719,6 +1749,335 @@ def phase_lwl_bf16_gate(spec32, tag="lwl_bf16_gate"):
     del spec16
 
 
+# ATOM and ECO (no Pallas kernel on either path: cuDNN convolutions, cuFFT,
+# cuBLAS, autograd and torch.func Jacobian products in the GN-CG solver)
+ATOM_FRAMES = 60
+ECO_FRAMES = 60
+SHORT_SYNC_FRAMES = 5
+ATOM_SHORT_FRAMES = 15                 # + SHORT_SYNC_FRAMES: the ATOM variants, ECO-mobile3
+GATE_FIRST_FRAME = 8                   # card-vs-CPU steps 8-12: the refit at frame_num 11
+ONLINE_GATE_FRAMES = 5
+ATOM_FILTER_GATE = 1e-4                # of the filter's scale, after a step without refit
+# after a refit: its 5 CG steps in float32 run close to where CG loses
+# conjugacy with these seeded weights; the card and the CPU part by 3.9e-4
+# and 2.8e-4 of scale, the CPU's own float32 refit and float64 by 2.8e-4
+# (the gate's print; NVIDIA H100 80GB HBM3, 700.00 W): 5x the larger
+ATOM_REFIT_GATE = 2e-3
+ECO_GATE_PX = 0.05
+ECO_SCORE_GATE = 1e-4                  # of the score maps' scale
+# card vs CPU of the init's joint GN-CG fit (P and hf after sign alignment),
+# of scale: both IEEE float32, 10 GN x 10 CG amplify the rounding; measured
+# 4.0e-4 to 1.73e-3 per block (same card): ~6x the largest
+ECO_INIT_GATE = 1e-2
+BF16_GATE_FRAMES = 10
+
+
+def atom_spec(module, device="cuda"):
+    return importlib.import_module(
+        f"pytracking_tpu_torch.parameter.atom.{module}").parameters(device=device, seed=0)
+
+
+def eco_spec(module, device="cuda", backbone_dtype=None):
+    kw = {} if backbone_dtype is None else {"backbone_dtype": backbone_dtype}
+    return importlib.import_module(
+        f"pytracking_tpu_torch.parameter.eco.{module}").parameters(device=device, seed=0, **kw)
+
+
+def _online_track(tag, tracker, n_frames, sync_frames):
+    """initialize on the DiMP sequence, `n_frames` timed frames, then
+    `sync_frames` more with the host synchronisations counted. Returns
+    (frame ms, outputs, init ms)."""
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(n_frames + sync_frames + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.initialize(frames[0], DIMP_INIT)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    frame_ms, outs = [], []
+    for im in frames[1:n_frames + 1]:
+        t0 = time.perf_counter()
+        outs.append(tracker.track(im))              # ends in the frame's readback
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    _check_one_sync(tag, tracker, frames[n_frames + 1:])
+    return frame_ms, outs, init_ms
+
+
+def _refit_report(tag, frame_ms, refit_idx):
+    after = [frame_ms[i + 1] for i in refit_idx if i + 1 < len(frame_ms)]
+    print(f"{tag}: refit frames (frame_num) {[i + 2 for i in refit_idx]}: "
+          f"{[round(frame_ms[i], 3) for i in refit_idx]} ms (the refit is enqueued after the "
+          f"readback), the frames after them {[round(x, 3) for x in after]} ms", flush=True)
+
+
+def phase_atom(module="default", tag="atom", n_frames=ATOM_FRAMES, sync_frames=SYNC_FRAMES):
+    """ATOM at full width (ResNet-18 to layer3, IoU-Net, 288x288 samples,
+    compressed_dim 64, memory 250): initialize (the joint GN-CG fit of
+    filter and projection) + `n_frames` frames of the DiMP sequence, then
+    `sync_frames` with the host synchronisations counted. Fails unless
+    every frame synchronises once, the periodic refits run on frame_num
+    11, 21, ... and K1 stays unlaunched. The score peaks are printed
+    (random weights: the classifier is learned online from the first
+    frame, so its peaks are not a random head's)."""
+    from pytracking_tpu_torch.trackers.atom import FLAG_NAMES, ATOMTracker
+
+    spec = atom_spec(module)
+    tracker = ATOMTracker(spec.params, spec.net, device="cuda")
+    p = spec.params
+    print(f"{tag}: ATOM ({module}) f32, {sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f}"
+          f" M parameters; sample area {p.max_image_sample_size}, compressed_dim "
+          f"{p.compressed_dim}, memory {p.sample_memory_size}, scales {len(p.scale_factors)}, "
+          f"IoU-Net {p.use_iou_net} ({p.box_refinement_space} space, step "
+          f"{p.box_refinement_step_length}), window {p.window_output}; init {p.init_GN_iter} GN "
+          f"x {p.init_CG_iter // p.init_GN_iter} CG", flush=True)
+    _k1_zero()
+    frame_ms, outs, init_ms = _online_track(tag, tracker, n_frames, sync_frames)
+    k1 = _k1_path(tag)
+    hist = _report_frames(tag, frame_ms, init_ms, outs, FLAG_NAMES)
+    st = tracker.state
+    for field in ("pos", "target_sz", "filt", "proj", "mem_weights", "mem_samples"):
+        check(bool(torch.isfinite(getattr(st, field)).all()), f"{tag}: non-finite {field}")
+    peaks = np.array([o["max_score"] for o in outs])
+    print(f"{tag}: score peaks min {peaks.min():.4f}, median {np.median(peaks):.4f}, max "
+          f"{peaks.max():.4f} (not-found threshold {p.target_not_found_threshold}); flags {hist}; "
+          f"sample {tracker._sample_sz}; memory holds {int(st.num_stored)}", flush=True)
+    iters = [tracker._refit_iterations(FLAG_NAMES.index(o["flag"]), i + 2)
+             for i, o in enumerate(outs)]
+    periodic = [i for i in range(n_frames) if (i + 1) % p.train_skipping == 0]
+    _refit_report(tag, frame_ms, periodic)
+    print(f"{tag}: CG iterations of the refit per frame "
+          f"{dict(sorted(collections.Counter(iters).items()))}", flush=True)
+    check(all(iters[i] > 0 for i in periodic) and periodic, f"{tag}: periodic refits {iters}")
+    return spec, tracker, k1
+
+
+def _recording(draws, fn):
+    def draw(*args):
+        out = fn(*args)
+        draws.append(out.cpu())
+        return out
+    return draw
+
+
+def _rel(a, b):
+    """max |a - b| / max |b|, complex tensors compared as such."""
+    a, b = (x.detach().cpu().to(torch.complex128 if x.is_complex() else torch.float64)
+            for x in (a, b))
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _online_gate(tag, gpu, cpu, draw_names, compare, init_report):
+    """Card against CPU, IEEE float32 on both, the card's draws replayed on
+    the CPU tracker: both initialised, the card alone to frame
+    GATE_FIRST_FRAME - 1, then ONLINE_GATE_FRAMES single steps each started
+    on the CPU from the card's state (copied). `init_report()` runs after
+    both initialisations; `compare(og, oc, the CPU's state before the
+    step)` checks a step and returns a line to print."""
+    draws = []
+    for name in draw_names:
+        setattr(gpu, name, _recording(draws, getattr(gpu, name)))
+        setattr(cpu, name, lambda *args: draws.pop(0))
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    last = GATE_FIRST_FRAME + ONLINE_GATE_FRAMES
+    frames = [dimp_frame(bg, t) for t in range(last)]
+    t0 = time.perf_counter()
+    gpu.initialize(frames[0], DIMP_INIT)
+    cpu.initialize(frames[0], DIMP_INIT)
+    check(not draws, f"{tag}: the CPU init did not consume every draw of the card's")
+    init_s = time.perf_counter() - t0
+    init_report()
+    for im in frames[1:GATE_FIRST_FRAME]:
+        gpu.track(im)
+    draws.clear()
+    lines = []
+    for im in frames[GATE_FIRST_FRAME:]:
+        cpu.state = before = _state_to(gpu.state, "cpu")
+        og = gpu.track(im)
+        oc = cpu.track(im)
+        check(not draws, f"{tag}: the CPU step did not consume every draw of the card's")
+        lines.append(compare(og, oc, before))
+    print(f"{tag}: both initialised in {init_s:.1f} s; steps at frames {GATE_FIRST_FRAME}-"
+          f"{last - 1} (frame_num {GATE_FIRST_FRAME + 1}-{last}):", flush=True)
+    for t, line in enumerate(lines, GATE_FIRST_FRAME + 1):
+        print(f"{tag}:   frame_num {t}: {line}", flush=True)
+
+
+def phase_atom_gate(spec, tag="atom_gate"):
+    """ATOM card vs CPU: equal flags and replace indices, boxes within
+    DIMP_GATE_PX, the filter after each step within ATOM_FILTER_GATE of its
+    scale, ATOM_REFIT_GATE after a refit (the periodic one at frame_num 11
+    among them; beside it the CPU's float32 refit against float64). The
+    init's joint fit is reported, not gated."""
+    from pytracking_tpu_torch.trackers.atom import FLAG_NAMES, ATOMTracker
+
+    gpu = ATOMTracker(spec.params, spec.net, device="cuda")
+    cpu = ATOMTracker(spec.params, copy.deepcopy(spec.net).to("cpu"), device="cpu")
+    refits = []
+
+    def compare(og, oc, before):
+        check(og["flag"] == oc["flag"], f"{tag}: flags differ {og['flag']} {oc['flag']}")
+        for name in ("prev_ind", "num_stored"):
+            a, b = int(getattr(gpu.state, name)), int(getattr(cpu.state, name))
+            check(a == b, f"{tag}: {name} differs: card {a}, CPU {b}")
+        px = float(np.abs(np.subtract(og["target_bbox"], oc["target_bbox"])).max())
+        check(px <= DIMP_GATE_PX, f"{tag}: boxes differ by {px} px")
+        rel = _rel(cpu.state.filt, gpu.state.filt)
+        n = gpu._refit_iterations(FLAG_NAMES.index(og["flag"]), gpu.state.frame_num)
+        refits.append(n)
+        limit = ATOM_REFIT_GATE if n else ATOM_FILTER_GATE
+        check(rel <= limit, f"{tag}: filters differ by {rel} of scale after {n} CG")
+        line = (f"flag {og['flag']}, box diff {px:.1e} px (<= {DIMP_GATE_PX}), refit {n} CG, "
+                f"filter max rel diff {rel:.1e} (<= {limit})")
+        if n:
+            st = cpu.state
+            f64 = cpu._filter_cg(before.filt.double(), st.mem_samples.double(),
+                                 st.mem_y.double(), st.mem_weights.double(), n)
+            line += f"; the CPU's float32 refit vs float64 {_rel(st.filt, f64):.1e}"
+        return line
+
+    def init_report():
+        print(f"{tag}: init (not gated): filter max rel diff {_rel(cpu.state.filt, gpu.state.filt):.2e},"
+              f" projection {_rel(cpu.state.proj, gpu.state.proj):.2e}", flush=True)
+
+    _online_gate(tag, gpu, cpu, ("_uniform", "_normal", "_keep_mask"), compare, init_report)
+    check(max(refits) > 0, f"{tag}: no refit among the gated steps")
+
+
+def phase_eco(module="default", tag="eco", n_frames=ECO_FRAMES, sync_frames=SYNC_FRAMES):
+    """ECO at full width (ResNet18-VGG-m1 vggconv1 + layer3, 5 scales,
+    memory 200): initialize (PCA by SVD, the joint {hf, P} GN-CG) +
+    `n_frames` frames, then `sync_frames` with the host synchronisations
+    counted. Fails unless every frame synchronises once and K1 stays
+    unlaunched; reports the refit frames of the host schedule (frame_num
+    11, 21, ...) and the scale indices the boxes imply."""
+    from pytracking_tpu_torch.trackers.eco import ECOTracker
+
+    spec = eco_spec(module)
+    tracker = ECOTracker(spec.params, spec.net, device="cuda")
+    p = spec.params
+    _k1_zero()
+    frame_ms, outs, init_ms = _online_track(tag, tracker, n_frames, sync_frames)
+    k1 = _k1_path(tag)
+    print(f"{tag}: ECO ({module}) f32, {sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f}"
+          f" M parameters; sample {tracker._sample_sz}, feature grids {tracker._feat_szs}, filter "
+          f"grids {tracker._filt_szs}, memory {p.sample_memory_size}, {len(p.scale_factors)} "
+          f"scales; init {p.init_GN_iter} GN x {p.init_CG_iter // p.init_GN_iter} CG", flush=True)
+    _report_frames(tag, frame_ms, init_ms, [dict(o, flag="normal") for o in outs], ["normal"])
+    st = tracker.state
+    for b in range(len(st.filters)):
+        for name in ("filters", "proj", "samples_f", "sample_energy"):
+            check(bool(torch.isfinite(getattr(st, name)[b]).all()), f"{tag}: non-finite {name}")
+    sizes = np.array([DIMP_INIT["init_bbox"][2:]] + [o["target_bbox"][2:] for o in outs])
+    ratio = np.sqrt(np.prod(sizes[1:] / sizes[:-1], axis=1))
+    inds = [int(np.argmin(np.abs(r - np.asarray(p.scale_factors)))) for r in ratio]
+    peaks = np.array([o["max_score"] for o in outs])
+    print(f"{tag}: score peaks min {peaks.min():.4f}, median {np.median(peaks):.4f}, max "
+          f"{peaks.max():.4f}; scale indices from the box sizes (bounds aside) "
+          f"{dict(sorted(collections.Counter(inds).items()))}; last box {outs[-1]['target_bbox']}",
+          flush=True)
+    refit = [i for i in range(n_frames) if (i + 2) % p.train_skipping == 1]
+    _refit_report(tag, frame_ms, refit)
+    check(refit and st.frame_num == n_frames + sync_frames + 1, f"{tag}: frame count")
+    return spec, tracker, k1
+
+
+def phase_eco_gate(spec, tag="eco_gate"):
+    """ECO card vs CPU: the init's P and hf after sign alignment within
+    ECO_INIT_GATE of scale, then per step the scale index equal, boxes
+    within ECO_GATE_PX, the score maps within ECO_SCORE_GATE of scale and
+    the filters after each step (the refit at frame_num 11 among them)."""
+    from pytracking_tpu_torch.trackers.eco import ECOTracker
+
+    gpu = ECOTracker(spec.params, spec.net, device="cuda")
+    cpu = ECOTracker(spec.params, copy.deepcopy(spec.net).to("cpu"), device="cpu")
+    maps = {}
+    for name, tr in (("gpu", gpu), ("cpu", cpu)):
+        fn = tr._score_maps
+        tr._score_maps = lambda *a, fn=fn, name=name: maps.__setitem__(name, fn(*a)) or maps[name]
+
+    def init_report():
+        rels = []
+        for b in range(len(gpu.state.proj)):
+            pg, pc = gpu.state.proj[b].cpu(), cpu.state.proj[b]
+            sign = torch.sign((pg * pc).sum(0))
+            rels += [_rel(pc * sign, pg),
+                     _rel(cpu.state.filters[b] * sign[:, None, None], gpu.state.filters[b])]
+        print(f"{tag}: init's P, hf per block after sign alignment, max rel diff "
+              f"{[f'{x:.2e}' for x in rels]} (<= {ECO_INIT_GATE})", flush=True)
+        check(max(rels) <= ECO_INIT_GATE, f"{tag}: the init's fits differ by {max(rels)}")
+
+    def compare(og, oc, before):
+        a, b = int(gpu.state.scale_ind), int(cpu.state.scale_ind)
+        check(a == b, f"{tag}: scale index differs: card {a}, CPU {b}")
+        px = float(np.abs(np.subtract(og["target_bbox"], oc["target_bbox"])).max())
+        check(px <= ECO_GATE_PX, f"{tag}: boxes differ by {px} px")
+        srel = _rel(maps["cpu"][0], maps["gpu"][0])
+        check(srel <= ECO_SCORE_GATE, f"{tag}: scores differ by {srel} of scale")
+        frel = max(_rel(c, g) for c, g in zip(cpu.state.filters, gpu.state.filters))
+        check(frel <= ECO_SCORE_GATE, f"{tag}: filters differ by {frel} of scale")
+        return (f"scale index {a}, box diff {px:.1e} px (<= {ECO_GATE_PX}), scores max rel diff "
+                f"{srel:.1e}, filters after the step {frel:.1e} (<= {ECO_SCORE_GATE})")
+
+    _online_gate(tag, gpu, cpu, ("_keep_mask",), compare, init_report)
+
+
+def _wrap_distance(a, b, n):
+    d = abs(a - b) % n
+    return min(d, n - d)
+
+
+def phase_bf16_score_gate(tag, tracker_cls, spec32, spec16, record, wrap=False):
+    """bf16 against float32 on the card, both from the same seed: 10 steps,
+    each bf16 step from the float32 tracker's state; the score maps that
+    `record` names ('_localize''s scores argument or '_score_maps''s first
+    output) held by the TaMOs bf16 gate's statistics: correlation > 0.98,
+    max-score relative difference < 0.05, argmax displacement <= 2 cells
+    (on ECO's wrap-around grid, per scale)."""
+    t32 = tracker_cls(spec32.params, spec32.net, device="cuda")
+    t16 = tracker_cls(spec16.params, spec16.net, device="cuda")
+    maps = {}
+    for key, tr in ((32, t32), (16, t16)):
+        fn = getattr(tr, record)
+        if record == "_localize":
+            def rec(*a, fn=fn, key=key):
+                maps[key] = a[1]
+                return fn(*a)
+        else:
+            def rec(*a, fn=fn, key=key):
+                out = fn(*a)
+                maps[key] = out[0]
+                return out
+        setattr(tr, record, rec)
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    frames = [dimp_frame(bg, t) for t in range(BF16_GATE_FRAMES + 1)]
+    t32.initialize(frames[0], DIMP_INIT)
+    t16.initialize(frames[0], DIMP_INIT)
+    corr, max_rel, disp = [], [], []
+    for im in frames[1:]:
+        t16.state = _state_to(t32.state, "cuda")
+        t32.track(im)
+        t16.track(im)
+        s32 = maps[32].double().cpu().numpy().reshape((-1,) + tuple(maps[32].shape[-2:]))
+        s16 = maps[16].double().cpu().numpy().reshape(s32.shape)
+        check(np.isfinite(s16).all(), f"{tag}: non-finite bf16 scores")
+        corr.append(float(np.corrcoef(s32.ravel(), s16.ravel())[0, 1]))
+        max_rel.append(float(abs(s16.max() - s32.max()) / max(abs(s32.max()), 1e-6)))
+        d = 0
+        for a, b in zip(s32, s16):
+            ia = np.unravel_index(np.argmax(a), a.shape)
+            ib = np.unravel_index(np.argmax(b), b.shape)
+            if wrap:
+                d = max(d, *(_wrap_distance(x, y, n) for x, y, n in zip(ia, ib, a.shape)))
+            else:
+                d = max(d, *(abs(int(x) - int(y)) for x, y in zip(ia, ib)))
+        disp.append(int(d))
+    print(f"{tag}: bf16 vs f32 per step over {BF16_GATE_FRAMES} frames: score corr min "
+          f"{min(corr):.5f} (> 0.98), max-score rel diff max {max(max_rel):.4f} (< 0.05), "
+          f"argmax disp {disp} (<= 2)", flush=True)
+    check(min(corr) > 0.98 and max(max_rel) < 0.05 and max(disp) <= 2, f"{tag}: bf16 gate failed")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -1746,9 +2105,9 @@ def main():
         phase = "profile"
         phase_profile(tracker)
         phase = "dimp"
-        dimp_spec, dimp_tracker = phase_dimp()
+        dimp, dimp_tracker = phase_dimp()
         phase = "dimp_gate"
-        phase_dimp_gate(dimp_spec)
+        phase_dimp_gate(dimp)
         phase = "dimp_profile"
         bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
         t_next = dimp_tracker.state.frame_num
@@ -1849,6 +2208,40 @@ def main():
                                           for t in range(t_next, t_next + 3)], tag=phase) == 0,
               "K1 launched on the RTS path under the profiler")
         del rts_spec, rts_tracker
+        phase = "atom"
+        atom, atom_tracker, kernel["launches_by_path"]["atom"] = phase_atom()
+        phase = "atom_gate"
+        phase_atom_gate(atom)
+        phase = "atom_profile"
+        t_next = atom_tracker.state.frame_num
+        check(phase_profile(atom_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+                            tag=phase) == 0, "K1 launched on the ATOM path under the profiler")
+        del atom, atom_tracker
+        for module, tag in (("atom_prob_ml", "atom_prob_ml"), ("default_vot", "atom_vot"),
+                            ("multiscale_no_iounet", "atom_multiscale")):
+            phase = tag
+            phase_atom(module, tag, ATOM_SHORT_FRAMES, SHORT_SYNC_FRAMES)
+        phase = "eco"
+        eco, eco_tracker, kernel["launches_by_path"]["eco"] = phase_eco()
+        phase = "eco_gate"
+        phase_eco_gate(eco)
+        phase = "eco_profile"
+        t_next = eco_tracker.state.frame_num
+        check(phase_profile(eco_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+                            tag=phase) == 0, "K1 launched on the ECO path under the profiler")
+        del eco_tracker
+        phase = "eco_mobile3"
+        phase_eco("mobile3", phase, ATOM_SHORT_FRAMES, SHORT_SYNC_FRAMES)
+        phase = "dimp_bf16_gate"
+        from pytracking_tpu_torch.trackers.dimp import DiMPTracker
+        from pytracking_tpu_torch.trackers.eco import ECOTracker
+        phase_bf16_score_gate(phase, DiMPTracker, dimp_spec("dimp50"),
+                              dimp_spec("dimp50", dtype=torch.bfloat16), "_localize")
+        phase = "eco_bf16_gate"
+        phase_bf16_score_gate(phase, ECOTracker, eco, eco_spec("default",
+                                                               backbone_dtype=torch.bfloat16),
+                              "_score_maps", wrap=True)
+        del eco
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

@@ -120,15 +120,17 @@ def _r18_features():
                               feature_dim=256, num_blocks=1, final_conv=True)
 
 
-def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda",
+              backbone_dtype: Optional[torch.dtype] = None) -> DiMPnet:
     """DiMP-50 on `device`, weights drawn from `generator` (seed 0 when
-    none is given): ResNet-50 layer2/layer3, a 3x3 conv 1024 -> 512 with
-    InstanceL2Norm as the classification feature, a 4x4 filter and its
-    optimiser (5 iterations by default, step 0.9, regulariser 0.1, 100
-    distance bins of 0.1 cell), IoU-Net on (512, 1024) channels with
-    256-wide heads."""
-    return _dimpnet(backbones.resnet50(), _r50_features(), _dimp_gn(), 512, (512, 1024),
-                    generator, device)
+    none is given): ResNet-50 layer2/layer3 (its convolutions computing in
+    `backbone_dtype` when given, its outputs float32), a 3x3 conv
+    1024 -> 512 with InstanceL2Norm as the classification feature, a 4x4
+    filter and its optimiser (5 iterations by default, step 0.9,
+    regulariser 0.1, 100 distance bins of 0.1 cell), IoU-Net on (512, 1024)
+    channels with 256-wide heads."""
+    return _dimpnet(backbones.resnet50(dtype=backbone_dtype), _r50_features(), _dimp_gn(), 512,
+                    (512, 1024), generator, device)
 
 
 def dimpnet18(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:

@@ -111,7 +111,8 @@ class DiMPParams:
     box_jitter_sz: float = 0.5
     maximal_aspect_ratio: float = 6.0
     box_refinement_iter: int = 5
-    box_refinement_step_length: float = 1.0
+    # a scalar, or a (pos, sz) pair: [pos, pos, sz, sz] per box coordinate
+    box_refinement_step_length: object = 1.0
     box_refinement_step_decay: float = 1.0
     box_refinement_space: str = "default"     # 'default' | 'relative' (PrDiMP)
     use_iounet_pos_for_learning: bool = True
@@ -153,6 +154,79 @@ def _get_iounet_box(pos, sz, sample_pos, sample_scale, img_sample_sz) -> torch.T
     box_sz = sz / sample_scale
     target_ul = box_center - (box_sz - 1) / 2
     return torch.cat([target_ul.flip(-1), box_sz.flip(-1)])
+
+
+def refine_target_box(p, iou_fn, state, sample_pos, sample_scale, img_sample_sz,
+                      jitter_scale, uniform, found, update_scale=True):
+    """IoU-Net gradient ascent on the current box and `num_init_random_boxes`
+    jittered copies (jitter from `uniform(shape)` U[0, 1) draws), in the box
+    space (the step scaled by the box size) or the relative space
+    (cx/σ, cy/σ, log w, log h), σ the current box's size. The step length is
+    a scalar or a (pos, sz) pair, the pair giving [pos, pos, sz, sz] per
+    coordinate. The mean of the best `iounet_k` boxes of valid aspect ratio
+    becomes the target where `found`. `iou_fn` maps (B, 4) patch boxes to
+    (B,) IoUs; `state` brings pos, target_sz, target_scale, base_target_sz
+    and the scale bounds. Returns the new (pos, target_sz, target_scale).
+    The DiMP family and ATOM share it."""
+    init_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
+                               img_sample_sz)
+    square_sz = torch.sqrt(torch.prod(init_box[2:]))
+    rand_bb = (uniform((p.num_init_random_boxes, 4)) - 0.5) * (square_sz * jitter_scale)
+    new_sz = torch.maximum(init_box[2:] + rand_bb[:, 2:], torch.min(init_box[2:]) / 3)
+    new_center = (init_box[:2] + init_box[2:] / 2) + rand_bb[:, :2]
+    jittered = torch.cat([new_center - new_sz / 2, new_sz], dim=1)
+    boxes = torch.cat([init_box[None], jittered])                    # (B + 1, 4)
+
+    step = p.box_refinement_step_length
+    if isinstance(step, (tuple, list)):
+        # filled on the device: a host tensor uploaded mid-frame would
+        # synchronise
+        pos_step, sz_step = step
+        step = torch.where(torch.arange(4, device=boxes.device) < 2, float(pos_step),
+                           float(sz_step))
+    if p.box_refinement_space == "relative":
+        sz_norm = boxes[0:1, 2:]
+        boxes_rel = rect_to_rel(boxes, sz_norm)
+        for _ in range(p.box_refinement_iter):
+            with torch.enable_grad():
+                b = boxes_rel.detach().requires_grad_(True)
+                grad, = torch.autograd.grad(iou_fn(rel_to_rect(b, sz_norm)).sum(), b)
+            boxes_rel = boxes_rel + step * grad
+            step = step * p.box_refinement_step_decay
+        boxes = rel_to_rect(boxes_rel, sz_norm)
+    else:
+        for _ in range(p.box_refinement_iter):
+            with torch.enable_grad():
+                b = boxes.detach().requires_grad_(True)
+                grad, = torch.autograd.grad(iou_fn(b).sum(), b)
+            boxes = boxes + step * grad * boxes[:, 2:].repeat(1, 2)
+            step = step * p.box_refinement_step_decay
+    iou = iou_fn(boxes)
+
+    # drop degenerate aspect ratios by -inf
+    boxes = torch.cat([boxes[:, :2], torch.clamp(boxes[:, 2:], min=1.0)], dim=1)
+    ar = boxes[:, 2] / boxes[:, 3]
+    valid = (ar < p.maximal_aspect_ratio) & (ar > 1 / p.maximal_aspect_ratio)
+    iou = torch.where(valid, iou, -math.inf)
+
+    # top k, the first index on ties (stable sort, as lax.top_k)
+    k = min(p.iounet_k, boxes.shape[0])
+    top_iou, top_idx = torch.sort(iou, descending=True, stable=True)
+    top_iou, top_idx = top_iou[:k], top_idx[:k]
+    top_valid = torch.isfinite(top_iou)
+    denom = torch.clamp(top_valid.sum(), min=1)
+    pred_box = torch.where(top_valid[:, None], boxes[top_idx], 0.0).sum(0) / denom
+
+    new_pos = pred_box[:2] + pred_box[2:] / 2
+    new_pos = (new_pos.flip(-1) - (img_sample_sz - 1) / 2) * sample_scale + sample_pos
+    new_target_sz = pred_box[2:].flip(-1) * sample_scale
+    new_scale = torch.sqrt(torch.prod(new_target_sz) / torch.prod(state.base_target_sz))
+
+    apply = found & valid.any()
+    new_scale = torch.minimum(torch.maximum(new_scale, state.min_scale), state.max_scale)
+    return (torch.where(apply & p.use_iounet_pos_for_learning, new_pos, state.pos),
+            torch.where(apply, new_target_sz, state.target_sz),
+            torch.where(apply & update_scale, new_scale, state.target_scale))
 
 
 class DiMPTracker(BaseTracker):
@@ -457,74 +531,15 @@ class DiMPTracker(BaseTracker):
 
     def _refine_target_box(self, state: DiMPState, backbone_feat, sample_pos, sample_scale,
                            found, update_scale=True) -> DiMPState:
-        """IoU-Net gradient ascent on the current box and jittered copies,
-        in the box space (the step scaled by the box size) or the relative
-        space (cx/σ, cy/σ, log w, log h), σ the current box's size; the mean
-        of the best `iounet_k` valid boxes becomes the target."""
-        p = self.params
+        """IoU-Net ascent from the current box (`refine_target_box`)."""
         net = self.net
-        img_sample_sz = self._img_sample_sz
-        init_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
-                                   img_sample_sz)
         iou_feat = net.bb_regressor.get_iou_feat(net.get_backbone_bbreg_feat(backbone_feat))
         modulation = (state.iou_mod3, state.iou_mod4)
-
-        square_sz = torch.sqrt(torch.prod(init_box[2:]))
-        rand_bb = (self._uniform((p.num_init_random_boxes, 4)) - 0.5) * \
-            (square_sz * self._jitter_scale)
-        new_sz = torch.maximum(init_box[2:] + rand_bb[:, 2:], torch.min(init_box[2:]) / 3)
-        new_center = (init_box[:2] + init_box[2:] / 2) + rand_bb[:, :2]
-        jittered = torch.cat([new_center - new_sz / 2, new_sz], dim=1)
-        boxes = torch.cat([init_box[None], jittered])                    # (B + 1, 4)
-
-        def iou_fn(b):
-            return net.bb_regressor.predict_iou(modulation, iou_feat, b[None])[0]
-
-        step = p.box_refinement_step_length
-        if p.box_refinement_space == "relative":
-            sz_norm = boxes[0:1, 2:]
-            boxes_rel = rect_to_rel(boxes, sz_norm)
-            for _ in range(p.box_refinement_iter):
-                with torch.enable_grad():
-                    b = boxes_rel.detach().requires_grad_(True)
-                    grad, = torch.autograd.grad(iou_fn(rel_to_rect(b, sz_norm)).sum(), b)
-                boxes_rel = boxes_rel + step * grad
-                step = step * p.box_refinement_step_decay
-            boxes = rel_to_rect(boxes_rel, sz_norm)
-        else:
-            for _ in range(p.box_refinement_iter):
-                with torch.enable_grad():
-                    b = boxes.detach().requires_grad_(True)
-                    grad, = torch.autograd.grad(iou_fn(b).sum(), b)
-                boxes = boxes + step * grad * boxes[:, 2:].repeat(1, 2)
-                step = step * p.box_refinement_step_decay
-        iou = iou_fn(boxes)
-
-        # drop degenerate aspect ratios by -inf
-        boxes = torch.cat([boxes[:, :2], torch.clamp(boxes[:, 2:], min=1.0)], dim=1)
-        ar = boxes[:, 2] / boxes[:, 3]
-        valid = (ar < p.maximal_aspect_ratio) & (ar > 1 / p.maximal_aspect_ratio)
-        iou = torch.where(valid, iou, -math.inf)
-
-        # top k, the first index on ties (stable sort, as lax.top_k)
-        k = min(p.iounet_k, boxes.shape[0])
-        top_iou, top_idx = torch.sort(iou, descending=True, stable=True)
-        top_iou, top_idx = top_iou[:k], top_idx[:k]
-        top_valid = torch.isfinite(top_iou)
-        denom = torch.clamp(top_valid.sum(), min=1)
-        pred_box = torch.where(top_valid[:, None], boxes[top_idx], 0.0).sum(0) / denom
-
-        new_pos = pred_box[:2] + pred_box[2:] / 2
-        new_pos = (new_pos.flip(-1) - (img_sample_sz - 1) / 2) * sample_scale + sample_pos
-        new_target_sz = pred_box[2:].flip(-1) * sample_scale
-        new_scale = torch.sqrt(torch.prod(new_target_sz) / torch.prod(state.base_target_sz))
-
-        apply = found & valid.any()
-        new_scale = torch.minimum(torch.maximum(new_scale, state.min_scale), state.max_scale)
-        return dataclasses.replace(
-            state, pos=torch.where(apply & p.use_iounet_pos_for_learning, new_pos, state.pos),
-            target_sz=torch.where(apply, new_target_sz, state.target_sz),
-            target_scale=torch.where(apply & update_scale, new_scale, state.target_scale))
+        pos, target_sz, target_scale = refine_target_box(
+            self.params, lambda b: net.bb_regressor.predict_iou(modulation, iou_feat, b[None])[0],
+            state, sample_pos, sample_scale, self._img_sample_sz, self._jitter_scale,
+            self._uniform, found, update_scale)
+        return dataclasses.replace(state, pos=pos, target_sz=target_sz, target_scale=target_scale)
 
     # ---------------------------------------------------------------- memory
 

@@ -1,6 +1,7 @@
 """Flax variables of the JAX package's TaMOsNet, ToMPnet, DiMPnet, KYSNet,
 KeepTrack's target candidate matching net, LWL's LWTLNet and LWTLBoxNet,
-STANet and RTSNet -> state_dicts of the port's nets.
+STANet, RTSNet, ATOMnet and ECO's backbones (ResNet18VGGm1,
+MobileNetV3Large, and their wrapper) -> state_dicts of the port's nets.
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree as
 nested dicts of numpy arrays (np.asarray of each leaf), so this module
@@ -231,4 +232,36 @@ def rtsnet_from_flax(variables: Mapping,
     """Convert the flax variables of an RTSNet (the hinge optimiser has no
     parameters) into the port's state_dict. With `net`, raise unless the
     keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)
+
+
+def atomnet_from_flax(variables: Mapping,
+                      net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of an ATOMnet (backbone and IoU-Net) into
+    the port's state_dict. With `net`, raise unless the keys and shapes are
+    exactly the net's."""
+    return dimpnet_from_flax(variables, net)
+
+
+def resnet18_vggm_from_flax(variables: Mapping,
+                            net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a ResNet18VGGm1 into the port's
+    state_dict. With `net`, raise unless the keys and shapes are exactly the
+    net's."""
+    return _net_from_flax(variables, net)
+
+
+def mobilenet3_from_flax(variables: Mapping,
+                         net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of a MobileNetV3Large (depthwise kernels
+    (kh, kw, 1, C) -> (C, 1, kh, kw)) into the port's state_dict. With `net`,
+    raise unless the keys and shapes are exactly the net's."""
+    return _net_from_flax(variables, net)
+
+
+def eco_backbone_from_flax(variables: Mapping,
+                           net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert the flax variables of ECO's backbone wrapper (either backbone
+    under `feature_extractor`) into the port's state_dict. With `net`, raise
+    unless the keys and shapes are exactly the net's."""
     return _net_from_flax(variables, net)

@@ -254,26 +254,19 @@ TRACE_KW = dict(image_sample_size=96, sample_memory_size=8, net_opt_iter=3,
                 train_skipping=4, target_not_found_threshold=0.185)
 
 
-def test_tracker_trace_matches_jax(nets):
-    """initialize + 10 frames on 128x128 frames (the JAX package's 128-pixel
-    shape bucket pads nothing). The port draws the dropout mask and the box
-    jitter through `_keep_mask` / `_uniform`; here both return the JAX
-    tracker's own draws, from its key with its splits. With these random
-    weights and a not-found threshold of 0.185 frame 1 is normal (no
-    update), frames 2-5 hard negatives (one optimiser iteration each), 6-7
-    normal, 8 normal on the train_skipping = 4 cadence (the periodic two),
-    9-10 normal; every score peak clears each threshold it is compared with
-    by 2e-3 or more, far beyond float32 rounding. Memory 8 with 6 init
-    samples fills after 2 updates; the later ones replace the lightest
-    slot."""
+def _trace_against_jax(nets, trace_kw, n_frames=10):
+    """initialize + `n_frames` frames of the JAX tracker and the port's with
+    `trace_kw`, the JAX tracker's draws fed to the port; every frame's
+    flag, box, score, state counters, memory and filter held to the JAX
+    ones. Returns the port's (flags, classifier iterations) per frame."""
     from pytracking_tpu.trackers.dimp import DiMPParams, DiMPTracker
 
     jnet, variables, tnet = nets
-    jtr = DiMPTracker(DiMPParams(**TRACE_KW), jnet, variables)
-    ttr = t_dimp.DiMPTracker(t_dimp.DiMPParams(**TRACE_KW), tnet, device="cpu")
+    jtr = DiMPTracker(DiMPParams(**trace_kw), jnet, variables)
+    ttr = t_dimp.DiMPTracker(t_dimp.DiMPParams(**trace_kw), tnet, device="cpu")
 
     drop_key = jax.random.split(jax.random.PRNGKey(0))[1]
-    n_drop, prob = dict(TRACE_KW["augmentation"])["dropout"]
+    n_drop, prob = dict(trace_kw["augmentation"])["dropout"]
 
     def keep_mask(shape, p):
         assert tuple(shape) == (n_drop, OUT_DIM, 1, 1) and p == prob
@@ -289,9 +282,9 @@ def test_tracker_trace_matches_jax(nets):
            np.asarray(jtr.state.target_filter).transpose(0, 4, 3, 1, 2))
 
     flags, iters = [], []
-    for t in range(1, 11):
+    for t in range(1, n_frames + 1):
         jitter = jax.random.uniform(jax.random.split(jtr.state.key)[1],
-                                    (TRACE_KW["num_init_random_boxes"], 4))
+                                    (trace_kw["num_init_random_boxes"], 4))
         ttr._uniform = lambda shape, u=_t(jitter): u
         jo = jtr.track(_frame(t))
         to = ttr.track(_frame(t))
@@ -310,9 +303,36 @@ def test_tracker_trace_matches_jax(nets):
         flags.append(jo["flag"])
         iters.append(ttr._classifier_iterations(t_dimp.FLAG_NAMES.index(to["flag"]),
                                                 ts.frame_num))
+    return ttr, flags, iters
+
+
+def test_tracker_trace_matches_jax(nets):
+    """initialize + 10 frames on 128x128 frames (the JAX package's 128-pixel
+    shape bucket pads nothing). The port draws the dropout mask and the box
+    jitter through `_keep_mask` / `_uniform`; here both return the JAX
+    tracker's own draws, from its key with its splits. With these random
+    weights and a not-found threshold of 0.185 frame 1 is normal (no
+    update), frames 2-5 hard negatives (one optimiser iteration each), 6-7
+    normal, 8 normal on the train_skipping = 4 cadence (the periodic two),
+    9-10 normal; every score peak clears each threshold it is compared with
+    by 2e-3 or more, far beyond float32 rounding. Memory 8 with 6 init
+    samples fills after 2 updates; the later ones replace the lightest
+    slot."""
+    ttr, flags, iters = _trace_against_jax(nets, TRACE_KW)
     # the trace filled the memory and ran every classifier branch
     assert int(ttr.state.num_stored) == TRACE_KW["sample_memory_size"], flags
     assert iters == [0, 1, 1, 1, 1, 0, 0, 2, 0, 0], str((flags, iters))
+
+
+def test_tracker_trace_pair_step_matches_jax(nets):
+    """The box refinement's step length as a (pos, sz) pair (ATOM's
+    convention, [pos, pos, sz, sz] per coordinate), in the box space and in
+    the relative space with a step decay, over 6 frames each."""
+    for space, step, decay in (("default", (0.6, 1.4), 1.0), ("relative", (0.02, 0.05), 0.8)):
+        kw = dict(TRACE_KW, box_refinement_step_length=step, box_refinement_space=space,
+                  box_refinement_step_decay=decay)
+        ttr, flags, _ = _trace_against_jax(nets, kw, n_frames=6)
+        assert "normal" in flags, (space, flags)
 
 
 WINDOWED = dict(window_output=True, perform_hn_without_windowing=True)

@@ -1,7 +1,7 @@
 """The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
-scripts/lwl_check.py)
+scripts/lwl_check.py, scripts/atom_eco_check.py)
 import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
@@ -20,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
 PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py", "kys_check.py",
-                "keep_track_check.py", "lwl_check.py")
+                "keep_track_check.py", "lwl_check.py", "atom_eco_check.py")
 
 
 def _port_sources():
@@ -174,6 +174,39 @@ def test_entry_points_raise_without_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.parameters(device="cuda", seed=1, weights_bf16=True)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_atom_eco_entry_points_raise_without_cuda():
+    """ATOM's and ECO's nets, trackers and parameter modules, and DiMP-50's
+    bf16 options, default to the card and refuse to run without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.models.tracking.atomnet import atom_resnet18, atom_resnet50
+    from pytracking_tpu_torch.parameter.dimp import dimp50
+    from pytracking_tpu_torch.parameter.eco.default import eco_backbone
+    from pytracking_tpu_torch.trackers.atom import ATOMParams, ATOMTracker
+    from pytracking_tpu_torch.trackers.eco import ECOParams, ECOTracker
+
+    for ctor in (atom_resnet18, atom_resnet50, lambda: eco_backbone(torch.nn.Identity())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ctor()
+    for cls, params in ((ATOMTracker, ATOMParams()), (ECOTracker, ECOParams())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(params, torch.nn.Linear(1, 1))
+    for module in ("atom.default", "atom.default_vot", "atom.atom_prob_ml",
+                   "atom.atom_gmm_sampl", "atom.multiscale_no_iounet", "eco.default",
+                   "eco.mobile3"):
+        mod = importlib.import_module(f"pytracking_tpu_torch.parameter.{module}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.parameters(device="cuda", seed=1)
+    for kw in (dict(dtype=torch.bfloat16), dict(backbone_dtype=torch.bfloat16)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dimp50.parameters(**kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        importlib.import_module("pytracking_tpu_torch.parameter.eco.default").parameters(
+            backbone_dtype=torch.bfloat16)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
