@@ -128,6 +128,23 @@ Phases (any failure exits non-zero and prints no result line):
               backbone against float32 on the card, 10 steps, each bf16 step
               from the float32 tracker's state: the score maps' correlation,
               max-score relative difference and argmax displacement.
+ 28. serving  the batched server (`parallel/serving.BatchedTrackerServer`,
+              no Pallas kernel on this path either): DiMP-50 f32 at its
+              operating point on B = 1, 8 and 32 streams of 480x640 frames
+              (`stream_frame`), 45 steps each with the refit deferred to the
+              ticks at frame_num 21 and 41: ms per step, aggregate frames/s
+              against the `dimp` median of the same call, a tick's time and
+              the steps around the ticks, kernel ms, launches and busy
+              share per step under the profiler, the server's peak device
+              memory (over what the script held before it), one
+              host synchronisation per `track` step and per deferred
+              `scan_track` call, K1 not launched; serving_gate (4 streams
+              against 4 single-stream trackers on the card, each step from
+              the server's stream state, the tick among 10 steps: flags,
+              replace indices, boxes, filters), serving_superdimp (SuperDiMP
+              at B = 8, 40 steps, its score peaks against its cut),
+              serving_bf16_gate (the default bf16 server against the f32
+              server, 8 streams x 10 steps: the score statistics).
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -572,10 +589,12 @@ def phase_main(main_keep, module="tamos_resnet50", tag="main", label="TaMOs-R50"
     return spec, tracker, launches, float(np.median(steady))
 
 
-def phase_profile(tracker, frames=None, tag="profile"):
+def phase_profile(tracker, frames=None, tag="profile", stats=None):
     """Device kernel time by kernel over the tracked frames (3 of a new
     sequence by default), and the device's busy share of the host's wall
-    time under the profiler. Fails if the profiler saw no device time."""
+    time under the profiler. Fails if the profiler saw no device time.
+    `stats`, a dict, receives the kernel ms, launches and busy share per
+    frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -601,6 +620,9 @@ def phase_profile(tracker, frames=None, tag="profile"):
     for key, us, count in rows[:15]:
         print(f"{tag}:   {us / n / 1e3:8.3f} ms/frame {100 * us / max(busy, 1):5.1f}% "
               f"x{count / n:<6.1f} {key[:100]}", flush=True)
+    if stats is not None:
+        stats.update(kernel_ms=busy / n / 1e3, launches=sum(r[2] for r in rows) / n,
+                     busy=busy / wall_us)
     return k1
 
 
@@ -785,7 +807,7 @@ def phase_dimp(name="dimp50", tag="dimp", require_flags=()):
         print(f"{tag}:   sync: {msg[:300]}", flush=True)
     check(all(len(x) == 1 for x in syncs), f"{tag}: not one host synchronisation per frame: "
           f"{[len(x) for x in syncs]}")
-    return spec, tracker
+    return spec, tracker, float(np.median(steady))
 
 
 def _state_to(state, device):
@@ -2030,8 +2052,8 @@ def _wrap_distance(a, b, n):
 def phase_bf16_score_gate(tag, tracker_cls, spec32, spec16, record, wrap=False):
     """bf16 against float32 on the card, both from the same seed: 10 steps,
     each bf16 step from the float32 tracker's state; the score maps that
-    `record` names ('_localize''s scores argument or '_score_maps''s first
-    output) held by the TaMOs bf16 gate's statistics: correlation > 0.98,
+    `record` names ('_localize_streams''s scores argument or '_score_maps''s
+    first output) held by the TaMOs bf16 gate's statistics: correlation > 0.98,
     max-score relative difference < 0.05, argmax displacement <= 2 cells
     (on ECO's wrap-around grid, per scale)."""
     t32 = tracker_cls(spec32.params, spec32.net, device="cuda")
@@ -2039,7 +2061,7 @@ def phase_bf16_score_gate(tag, tracker_cls, spec32, spec16, record, wrap=False):
     maps = {}
     for key, tr in ((32, t32), (16, t16)):
         fn = getattr(tr, record)
-        if record == "_localize":
+        if record == "_localize_streams":
             def rec(*a, fn=fn, key=key):
                 maps[key] = a[1]
                 return fn(*a)
@@ -2078,6 +2100,295 @@ def phase_bf16_score_gate(tag, tracker_cls, spec32, spec16, record, wrap=False):
     check(min(corr) > 0.98 and max(max_rel) < 0.05 and max(disp) <= 2, f"{tag}: bf16 gate failed")
 
 
+SERVING_STREAMS = (1, 8, 32)
+SERVING_FRAMES = 45                 # the ticks at frame_num 21 and 41 (train_skipping 20)
+SERVING_SYNC_STEPS = 3              # steps with the host synchronisations counted, per B
+SERVING_SCAN_FRAMES = 5             # one scan_track call, its synchronisations counted
+SERVING_GATE_STREAMS = 4
+SERVING_GATE_FREE = 15              # free steps first: the gate's 10 hold the tick at 21
+SERVING_FILTER_GATE = 1e-4          # of the filters' scale, after the tick
+SERVING_SUPERDIMP_STREAMS = 8
+SERVING_BF16_STREAMS = 8
+_PALETTE = ((220, 60, 60), (60, 200, 90), (230, 220, 40), (200, 70, 200))
+
+
+def _stream_size(b):
+    return 80 - 4 * (b % 5), 60 + 3 * (b % 4)
+
+
+def stream_frame(rng_bg, b, t):
+    """Stream b's frame t: `dimp_frame`'s motion started 2b frames on, with a
+    target of the stream's own size (h 64-80, w 60-69) and colour."""
+    im = rng_bg.copy()
+    s = t + 2 * b
+    h, w = _stream_size(b)
+    y, x = 150 + 2 * s, 200 + 3 * s
+    im[y:y + h, x:x + w] = _PALETTE[b % len(_PALETTE)]
+    return im
+
+
+def stream_box(b):
+    h, w = _stream_size(b)
+    return [200 + 6 * b, 150 + 4 * b, w, h]
+
+
+def stream_batch(rng_bg, B, t):
+    return np.stack([stream_frame(rng_bg, b, t) for b in range(B)])
+
+
+def _serve(tag, spec, B, n_frames, bf16=False):
+    """A server of B streams of `spec` on the card: initialize + n_frames
+    steps. Returns (server, init ms, step ms, the steps that enqueued a
+    tick (0-based), flags (n, B), score peaks (n, B))."""
+    from pytracking_tpu_torch.parallel.serving import BatchedTrackerServer
+    from pytracking_tpu_torch.trackers.dimp import DiMPTracker
+
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    server = BatchedTrackerServer(DiMPTracker, spec.params, spec.net, device="cuda", bf16=bf16)
+    check(server._deferred, f"{tag}: the DiMP tracker should serve with the deferred update")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.initialize([stream_frame(bg, b, 0) for b in range(B)],
+                      [stream_box(b) for b in range(B)])
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    step_ms, ticks, flags, peaks = [], [], [], []
+    for t in range(1, n_frames + 1):
+        batch = stream_batch(bg, B, t)
+        t0 = time.perf_counter()
+        boxes = server.track(batch)          # reads back boxes, peaks and flags: ends in a sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if server._needs_update_tick():
+            ticks.append(t - 1)
+        check(boxes.shape == (B, 4) and np.isfinite(boxes).all()
+              and np.isfinite(server.max_scores).all(), f"{tag}: bad output {boxes}")
+        flags.append(server.flags.copy())
+        peaks.append(server.max_scores.copy())
+    torch.cuda.synchronize()
+    st = server.states
+    for field in ("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes"):
+        check(bool(torch.isfinite(getattr(st, field)).all()), f"{tag}: non-finite state {field}")
+    return server, init_ms, step_ms, ticks, np.array(flags), np.array(peaks)
+
+
+def _serving_syncs(tag, server, B, first):
+    """One host synchronisation per `track` step and one per deferred
+    `scan_track` call over frames already on the card. Returns the frame
+    count after them."""
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    msgs = [_count_syncs(lambda t=t: server.track(stream_batch(bg, B, t)))[1]
+            for t in range(first, first + SERVING_SYNC_STEPS)]
+    syncs = [len(m) for m in msgs]
+    first += SERVING_SYNC_STEPS
+    frames = torch.from_numpy(np.stack([stream_batch(bg, B, t) for t in
+                                        range(first, first + SERVING_SCAN_FRAMES)])).cuda()
+    torch.cuda.synchronize()
+    boxes, scan = _count_syncs(lambda: server.scan_track(frames))
+    check(boxes.shape == (SERVING_SCAN_FRAMES, B, 4) and np.isfinite(boxes).all(),
+          f"{tag}: bad scan_track output")
+    print(f"{tag}: B={B}: host synchronisations per track step {syncs} (target 1); one "
+          f"scan_track call over {SERVING_SCAN_FRAMES} frames on the card: {len(scan)} "
+          f"(target 1)", flush=True)
+    if any(n != 1 for n in syncs) or len(scan) != 1:
+        for msg in sorted(set(scan + [m for x in msgs for m in x])):
+            print(f"{tag}:   sync: {msg[:300]}", flush=True)
+    check(all(n == 1 for n in syncs) and len(scan) == 1,
+          f"{tag}: B={B}: not one synchronisation per step / per scan: {syncs}, {len(scan)}")
+    return first + SERVING_SCAN_FRAMES
+
+
+def _flag_hist(flags):
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES
+
+    return {name: int((flags == i).sum()) for i, name in enumerate(FLAG_NAMES)}
+
+
+def phase_serving(dimp_median, tag="serving"):
+    """DiMP-50 (f32, dimp50's operating point, not-found DIMP_NOT_FOUND_THRESHOLD)
+    served at B = 1, 8 and 32 streams, SERVING_FRAMES steps each: ms per
+    step, aggregate frames/s against the single-stream `dimp` phase's median
+    (same call), the tick steps, kernels and launches per step under the
+    profiler, peak device memory, one synchronisation per step and per
+    deferred scan. Returns K1's launches over the phase (0 expected)."""
+    from pytracking_tpu_torch.utils.device import ieee_float32
+
+    spec = dimp_spec("dimp50")
+    p = spec.params
+    print(f"{tag}: DiMP-50 f32 server, sample {p.image_sample_size}, memory "
+          f"{p.sample_memory_size}, {p.num_init_random_boxes}+1 boxes x "
+          f"{p.box_refinement_iter} steps, deferred update ({p.net_opt_update_iter} "
+          f"iterations every {p.train_skipping} frames); single-stream median "
+          f"{dimp_median:.3f} ms/frame ({1e3 / dimp_median:.1f} frames/s)", flush=True)
+    bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    _k1_zero()
+    for B in SERVING_STREAMS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        server, init_ms, step_ms, ticks, flags, peaks = _serve(tag, spec, B, SERVING_FRAMES)
+        peak_gib = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        steady = np.asarray(step_ms[WARMUP_FRAMES:])
+        med = float(np.median(steady))
+        check(ticks == [19, 39], f"{tag}: B={B}: ticks after steps {ticks}, expected [19, 39]")
+        after = [round(step_ms[i + 1], 3) for i in ticks if i + 1 < len(step_ms)]
+        stats = {}
+        t_next = server._frame_num
+        check(phase_profile(server, [stream_batch(bg, B, t) for t in range(t_next, t_next + 3)],
+                            tag=f"{tag}_b{B}_profile", stats=stats) == 0,
+              f"{tag}: K1 launched under the profiler")
+        tick_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad(), ieee_float32():
+                server._update_deferred()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"{tag}: B={B}: init {init_ms:.1f} ms; {len(steady)} steps after "
+              f"{WARMUP_FRAMES} warm-up: median {med:.3f} ms/step, p90 "
+              f"{np.percentile(steady, 90):.3f}, min {steady.min():.3f}, max "
+              f"{steady.max():.3f}; aggregate {B * 1e3 / med:.1f} frames/s, "
+              f"{B * dimp_median / med:.2f}x the single stream; tick steps "
+              f"{[i + 1 for i in ticks]}: {[round(step_ms[i], 3) for i in ticks]} ms, the "
+              f"steps after them {after} ms, a tick alone {min(tick_ms):.3f} ms (to its end); kernels "
+              f"{stats['kernel_ms']:.3f} ms/step, "
+              f"{stats['launches']:.0f} launches/step, busy {100 * stats['busy']:.1f}%; "
+              f"peak device memory {peak_gib:.3f} GiB over what was allocated before; flags {_flag_hist(flags)}; peaks "
+              f"{peaks.min():.4f}-{peaks.max():.4f}", flush=True)
+        _serving_syncs(tag, server, B, t_next + 3)
+        del server
+    return _k1_path(tag)
+
+
+def phase_serving_gate(tag="serving_gate"):
+    """The server against SERVING_GATE_STREAMS single-stream DiMPTrackers on
+    the card, IEEE f32 on both: SERVING_GATE_FREE free steps, then
+    DIMP_GATE_FRAMES steps with the tick at frame_num 21 among them, each
+    single tracker started at every step from the server's stream-b state
+    (copied; run free the random net's loop drifts ~15 px in ten frames).
+    The singles run deferred too and refit at the tick. Each single's
+    generator is set to the server's once, after the free steps; from then
+    on they draw alike with no draw replayed. Flags,
+    replace indices and stored counts equal, boxes within DIMP_GATE_PX,
+    filters within SERVING_FILTER_GATE of scale after every step."""
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker, stream_state
+
+    spec = dimp_spec("dimp50")
+    B = SERVING_GATE_STREAMS
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    server = _serve(tag, spec, B, SERVING_GATE_FREE)[0]
+    single_p = dataclasses.replace(spec.params, defer_classifier_update=True)
+    singles = [DiMPTracker(single_p, spec.net, device="cuda") for _ in range(B)]
+    for b, tr in enumerate(singles):
+        tr.initialize(stream_frame(bg, b, 0), {"init_bbox": stream_box(b)})
+        tr._generator.set_state(server.tracker._generator.get_state())
+    px, filt_rel, flags, ticks = [], [], [], []
+    first = SERVING_GATE_FREE + 1
+    for t in range(first, first + DIMP_GATE_FRAMES):
+        for b, tr in enumerate(singles):
+            tr.state = stream_state(server.states, b)
+        boxes = server.track(stream_batch(bg, B, t))
+        tick = server._needs_update_tick()
+        if tick:
+            ticks.append(server._frame_num)
+        step_px, step_rel = 0.0, 0.0
+        for b, tr in enumerate(singles):
+            out = tr.track(stream_frame(bg, b, t))
+            if tick:
+                tr.update_classifier_deferred()
+            got = stream_state(server.states, b)
+            check(FLAG_NAMES[server.flags[b]] == out["flag"],
+                  f"{tag}: frame {t} stream {b}: flags differ {FLAG_NAMES[server.flags[b]]} "
+                  f"{out['flag']}")
+            for name in ("prev_ind", "num_stored"):
+                a, c = int(getattr(got, name)), int(getattr(tr.state, name))
+                check(a == c, f"{tag}: frame {t} stream {b}: {name} differs: {a}, {c}")
+            step_px = max(step_px, float(np.abs(boxes[b] - np.asarray(out["target_bbox"])).max()))
+            ref = tr.state.target_filter
+            step_rel = max(step_rel, float((got.target_filter - ref).abs().max()
+                                           / ref.abs().max()))
+        px.append(step_px)
+        filt_rel.append(step_rel)
+        flags.append([FLAG_NAMES[f] for f in server.flags])
+    print(f"{tag}: {B} streams, steps {first}-{first + DIMP_GATE_FRAMES - 1} against single "
+          f"trackers; ticks at frame_num {ticks}; flags equal {flags}; replace indices equal; "
+          f"box difference per step {[f'{x:.1e}' for x in px]} px (<= {DIMP_GATE_PX}); filter "
+          f"max rel diff per step {[f'{x:.1e}' for x in filt_rel]} (<= "
+          f"{SERVING_FILTER_GATE})", flush=True)
+    check(ticks, f"{tag}: no tick among the gated steps")
+    check(max(px) <= DIMP_GATE_PX, f"{tag}: boxes differ by {max(px)} px")
+    check(max(filt_rel) <= SERVING_FILTER_GATE, f"{tag}: filters differ by {max(filt_rel)}")
+
+
+def phase_serving_superdimp(tag="serving_superdimp"):
+    """SuperDiMP (352x352 'inside_major' crops, the relative-space ascent)
+    served at SERVING_SUPERDIMP_STREAMS streams for SHORT_FRAMES steps at the
+    `superdimp` phase's cut (SUPERDIMP_NOT_FOUND_THRESHOLD): step times, the
+    score peaks and flags, one synchronisation per step and per deferred
+    scan. Returns K1's launches over the phase (0 expected)."""
+    spec = dimp_spec("super_dimp")
+    B = SERVING_SUPERDIMP_STREAMS
+    _k1_zero()
+    server, init_ms, step_ms, ticks, flags, peaks = _serve(tag, spec, B, SHORT_FRAMES)
+    steady = np.asarray(step_ms[WARMUP_FRAMES:])
+    med = float(np.median(steady))
+    print(f"{tag}: B={B}: init {init_ms:.1f} ms; median {med:.3f} ms/step, p90 "
+          f"{np.percentile(steady, 90):.3f}; aggregate {B * 1e3 / med:.1f} frames/s; ticks "
+          f"after steps {[i + 1 for i in ticks]}; score peaks min {peaks.min():.4f}, median "
+          f"{np.median(peaks):.4f}, max {peaks.max():.4f} against the cut "
+          f"{spec.params.target_not_found_threshold}; flags {_flag_hist(flags)}", flush=True)
+    check(ticks == [19, 39], f"{tag}: ticks after steps {ticks}, expected [19, 39]")
+    _serving_syncs(tag, server, B, server._frame_num)
+    return _k1_path(tag)
+
+
+def phase_serving_bf16_gate(tag="serving_bf16_gate"):
+    """The default server (bf16: weights rounded through bf16) against the
+    f32 server on the same SERVING_BF16_STREAMS streams, BF16_GATE_FRAMES
+    steps, each bf16 step from the f32 server's state (the two servers'
+    generators, seeded alike, draw alike): per stream the score maps'
+    correlation (> 0.98), max-score relative difference (< 0.05) and argmax
+    displacement (<= 2 cells)."""
+    from pytracking_tpu_torch.parallel.serving import BatchedTrackerServer
+    from pytracking_tpu_torch.trackers.dimp import DiMPTracker
+
+    spec = dimp_spec("dimp50")
+    B = SERVING_BF16_STREAMS
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    s32 = BatchedTrackerServer(DiMPTracker, spec.params, spec.net, device="cuda", bf16=False)
+    s16 = BatchedTrackerServer(DiMPTracker, spec.params, spec.net, device="cuda")
+    check(s16.bf16 and not s32.bf16, f"{tag}: the default server is not bf16")
+    frames0 = [stream_frame(bg, b, 0) for b in range(B)]
+    for s in (s32, s16):
+        s.initialize(frames0, [stream_box(b) for b in range(B)])
+    maps = {}
+    for key, s in ((32, s32), (16, s16)):
+        def recording(state, scores, *args, fn=s.tracker._localize_streams, key=key):
+            maps[key] = scores
+            return fn(state, scores, *args)
+        s.tracker._localize_streams = recording
+    corr, max_rel, disp = [], [], []
+    for t in range(1, BF16_GATE_FRAMES + 1):
+        s16.states = _state_to(s32.states, s32.device)
+        batch = stream_batch(bg, B, t)
+        s32.track(batch)
+        s16.track(batch)
+        m32 = maps[32].double().cpu().numpy()
+        m16 = maps[16].double().cpu().numpy()
+        check(np.isfinite(m16).all(), f"{tag}: non-finite bf16 scores")
+        for a, c in zip(m32, m16):
+            corr.append(float(np.corrcoef(a.ravel(), c.ravel())[0, 1]))
+            max_rel.append(float(abs(c.max() - a.max()) / max(abs(a.max()), 1e-6)))
+            ia = np.unravel_index(np.argmax(a), a.shape)
+            ic = np.unravel_index(np.argmax(c), c.shape)
+            disp.append(int(max(abs(int(x) - int(y)) for x, y in zip(ia, ic))))
+    print(f"{tag}: bf16 vs f32 server, {B} streams x {BF16_GATE_FRAMES} steps: score corr "
+          f"min {min(corr):.5f} (> 0.98), max-score rel diff max {max(max_rel):.4f} (< 0.05), "
+          f"argmax disp max {max(disp)} (<= 2)", flush=True)
+    check(min(corr) > 0.98 and max(max_rel) < 0.05 and max(disp) <= 2,
+          f"{tag}: bf16 gate failed")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -2105,7 +2416,7 @@ def main():
         phase = "profile"
         phase_profile(tracker)
         phase = "dimp"
-        dimp, dimp_tracker = phase_dimp()
+        dimp, dimp_tracker, dimp_median = phase_dimp()
         phase = "dimp_gate"
         phase_dimp_gate(dimp)
         phase = "dimp_profile"
@@ -2236,12 +2547,20 @@ def main():
         from pytracking_tpu_torch.trackers.dimp import DiMPTracker
         from pytracking_tpu_torch.trackers.eco import ECOTracker
         phase_bf16_score_gate(phase, DiMPTracker, dimp_spec("dimp50"),
-                              dimp_spec("dimp50", dtype=torch.bfloat16), "_localize")
+                              dimp_spec("dimp50", dtype=torch.bfloat16), "_localize_streams")
         phase = "eco_bf16_gate"
         phase_bf16_score_gate(phase, ECOTracker, eco, eco_spec("default",
                                                                backbone_dtype=torch.bfloat16),
                               "_score_maps", wrap=True)
         del eco
+        phase = "serving"
+        kernel["launches_by_path"]["serving"] = phase_serving(dimp_median)
+        phase = "serving_gate"
+        phase_serving_gate()
+        phase = "serving_superdimp"
+        kernel["launches_by_path"]["serving_superdimp"] = phase_serving_superdimp()
+        phase = "serving_bf16_gate"
+        phase_serving_bf16_gate()
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

@@ -5,7 +5,10 @@ pytracking_tpu/models/classifier/optimizer.py `DiMPSteepestDescentGN`,
 Shapes: weights (S, 1, C, fh, fw); feat (N, S, C, H, W); bb (N, S, 4) as
 (x, y, w, h) in image-patch coordinates; sample_weight (N, S) or None. The
 iteration count is a host integer, so the loop is a plain Python loop of
-fixed-shape tensor ops with no readback.
+fixed-shape tensor ops with no readback. The filter correlations run one
+convolution per sequence (`ops.filter.*_per_sequence`): with S > 1 (the
+streams of the batched server) cuDNN's grouped ones are several times
+slower.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from torch import nn
 
 from pytracking_tpu_torch.ops import activation as act
 from pytracking_tpu_torch.ops.distance import distance_map
-from pytracking_tpu_torch.ops.filter import apply_feat_transpose, apply_filter
+from pytracking_tpu_torch.ops.filter import (apply_feat_transpose_per_sequence,
+                                             apply_filter_per_sequence)
 
 
 def initial_label_map_w(d: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -33,6 +37,16 @@ def initial_label_map_w(d: torch.Tensor, sigma: float) -> torch.Tensor:
     return init_gauss - init_gauss.min()
 
 
+def _step_length_and_reg(opt):
+    """exp(log_step_length) and filter_reg² (clamped at min_filter_reg²),
+    computed in `opt.param_dtype`: bf16 where the weights are stored as
+    bf16 (`utils/loading.round_to_bf16_`), as flax computes them from bf16
+    parameters; the result then promotes to the float32 tensors it meets."""
+    log_step, filter_reg = (x.to(opt.param_dtype) for x in (opt.log_step_length, opt.filter_reg))
+    return (torch.exp(log_step)[0],
+            torch.clamp(filter_reg * filter_reg, min=opt.min_filter_reg ** 2)[0])
+
+
 class DiMPSteepestDescentGN(nn.Module):
     """Steepest descent with a Gauss-Newton step length on the learned
     residual: label map y, target mask m (through a sigmoid) and spatial
@@ -43,6 +57,7 @@ class DiMPSteepestDescentGN(nn.Module):
     from them)."""
 
     min_filter_reg = 1e-3
+    param_dtype = torch.float32
 
     def __init__(self, num_iter: int = 1, feat_stride: int = 16,
                  init_step_length: float = 1.0, init_filter_reg: float = 1e-2,
@@ -80,8 +95,7 @@ class DiMPSteepestDescentGN(nn.Module):
         fsz = (weights.shape[-2], weights.shape[-1])
         out_sz = (feat.shape[-2] + (fsz[0] + 1) % 2, feat.shape[-1] + (fsz[1] + 1) % 2)
 
-        step_length = torch.exp(self.log_step_length)[0]
-        reg = torch.clamp(self.filter_reg * self.filter_reg, min=self.min_filter_reg ** 2)[0]
+        step_length, reg = _step_length_and_reg(self)
 
         label, mask, sw = (x.reshape((N, S, 1) + out_sz)
                            for x in self._predictors(bb, fsz, out_sz))
@@ -91,13 +105,13 @@ class DiMPSteepestDescentGN(nn.Module):
             sample_weight = torch.sqrt(sample_weight).reshape(N, S, 1, 1, 1) * sw
 
         for _ in range(num_iter):
-            scores = apply_filter(feat, weights)                          # (N, S, 1, H, W)
+            scores = apply_filter_per_sequence(feat, weights)             # (N, S, 1, H, W)
             score_mask = act.leaky_relu_par_deriv(scores, mask)
             residuals = sample_weight * (act.leaky_relu_par(scores, mask) - label)
             residuals_mapped = score_mask * (sample_weight * residuals)
-            w_grad = apply_feat_transpose(feat, residuals_mapped, fsz) + reg * weights
+            w_grad = apply_feat_transpose_per_sequence(feat, residuals_mapped, fsz) + reg * weights
 
-            scores_grad = sample_weight * (score_mask * apply_filter(feat, w_grad))
+            scores_grad = sample_weight * (score_mask * apply_filter_per_sequence(feat, w_grad))
             alpha_num = torch.sum(w_grad * w_grad, dim=(1, 2, 3, 4))               # (S,)
             alpha_den = torch.clamp(torch.sum(scores_grad ** 2, dim=(0, 2, 3, 4))
                                     + reg * alpha_num, min=1e-8)
@@ -112,6 +126,8 @@ class PrDiMPSteepestDescentNewton(nn.Module):
     `softmax_reg`) and a Gaussian label density at the target centre. The
     step length comes from the softmax Hessian-vector product gᵀHg; the
     regulariser is filter_reg² clamped at min_filter_reg²."""
+
+    param_dtype = torch.float32
 
     def __init__(self, num_iter: int = 1, feat_stride: int = 16,
                  init_step_length: float = 1.0, init_filter_reg: float = 1e-2,
@@ -162,8 +178,7 @@ class PrDiMPSteepestDescentNewton(nn.Module):
         fsz = (weights.shape[-2], weights.shape[-1])
         out_sz = (feat.shape[-2] + (fsz[0] + 1) % 2, feat.shape[-1] + (fsz[1] + 1) % 2)
 
-        step_length = torch.exp(self.log_step_length)[0]
-        reg = torch.clamp(self.filter_reg * self.filter_reg, min=self.min_filter_reg ** 2)[0]
+        step_length, reg = _step_length_and_reg(self)
 
         center = ((bb[..., :2] + bb[..., 2:] / 2) / self.feat_stride).reshape(-1, 2).flip(-1)
         center = torch.stack([center[:, 0] - (fsz[0] % 2) / 2.0,
@@ -176,13 +191,13 @@ class PrDiMPSteepestDescentNewton(nn.Module):
         sw_ns = sample_weight.reshape(N, S)
 
         for _ in range(num_iter):
-            scores = apply_filter(feat, weights)                          # (N, S, 1, H, W)
+            scores = apply_filter_per_sequence(feat, weights)             # (N, S, 1, H, W)
             sm = act.softmax_reg(scores.reshape(N, S, -1), dim=2,
                                  reg=self.softmax_reg).reshape(scores.shape)
             res = sample_weight * (sm - label)
-            w_grad = apply_feat_transpose(feat, res, fsz) + reg * weights
+            w_grad = apply_feat_transpose_per_sequence(feat, res, fsz) + reg * weights
 
-            scores_grad = apply_filter(feat, w_grad)
+            scores_grad = apply_filter_per_sequence(feat, w_grad)
             sm_scores_grad = sm * scores_grad
             hes_scores_grad = sm_scores_grad - sm * sm_scores_grad.sum(dim=(-2, -1), keepdim=True)
             ghg = torch.clamp((scores_grad * hes_scores_grad).reshape(N, S, -1).sum(-1), min=0.0)

@@ -27,7 +27,7 @@ from pytracking_tpu_torch.models.classifier.optimizer import initial_label_map_w
 from pytracking_tpu_torch.models.meta.steepestdescent import gn_steepest_descent
 from pytracking_tpu_torch.ops import activation as act
 from pytracking_tpu_torch.ops.distance import distance_map
-from pytracking_tpu_torch.ops.filter import apply_filter
+from pytracking_tpu_torch.ops.filter import apply_filter, apply_filter_per_sequence
 
 
 class GNSteepestDescentDiMP(nn.Module):
@@ -72,7 +72,8 @@ class GNSteepestDescentDiMP(nn.Module):
         reg = self.filter_reg[0]
 
         def residual(w):
-            scores = act.bent_ident_par(apply_filter(feat, w), mask, self.act_param)
+            scores = act.bent_ident_par(apply_filter_per_sequence(feat, w), mask,
+                                        self.act_param)
             return {"data": sample_weight * (scores - label), "reg": reg * w.reshape(1, S, -1)}
 
         return gn_steepest_descent(residual, weights, num_iter, residual_batch_dim=1)

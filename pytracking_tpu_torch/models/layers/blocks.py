@@ -57,7 +57,10 @@ class BatchNorm(nn.Module):
         shape[self.dim] = -1
         if self.param_dtype == torch.bfloat16:
             dt = torch.bfloat16
-            mul = torch.rsqrt(self.running_var.to(dt) + self.eps) * self.weight.to(dt)
+            # rsqrt in float32, rounded once, as XLA computes a bf16 rsqrt
+            # (PyTorch's bf16 rsqrt on the CPU is off by an ulp now and then)
+            var = self.running_var.to(dt) + self.eps
+            mul = torch.rsqrt(var.float()).to(dt) * self.weight.to(dt)
             return (x - self.running_mean.to(dt).view(shape)) * mul.view(shape) \
                 + self.bias.to(dt).view(shape)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight

@@ -19,18 +19,7 @@ import torch
 from torch import nn
 
 from pytracking_tpu_torch.models.meta.steepestdescent import gn_steepest_descent
-from pytracking_tpu_torch.ops.filter import apply_filter
-
-
-def _apply_per_sequence(feat: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """`apply_filter` as one ungrouped convolution per sequence: with S > 1
-    sequences (the objects of a batched step) cuDNN's grouped weight
-    gradient, which the refit's Jacobian products run, is several times
-    slower than S ungrouped ones."""
-    if feat.shape[1] == 1:
-        return apply_filter(feat, filt)
-    return torch.cat([apply_filter(feat[:, s:s + 1], filt[s:s + 1])
-                      for s in range(feat.shape[1])], dim=1)
+from pytracking_tpu_torch.ops.filter import apply_filter, apply_filter_per_sequence
 
 
 def lwl_residual(filt: torch.Tensor, feat: torch.Tensor, label: torch.Tensor,
@@ -38,7 +27,7 @@ def lwl_residual(filt: torch.Tensor, feat: torch.Tensor, label: torch.Tensor,
     """The few-shot residuals: weighted data term and filter regulariser."""
     N, S = feat.shape[:2]
     sw = math.sqrt(1.0 / N) if sample_weight is None else sample_weight
-    return {"data": sw * (_apply_per_sequence(feat, filt) - label),
+    return {"data": sw * (apply_filter_per_sequence(feat, filt) - label),
             "reg": filter_reg * filt.reshape(1, S, -1)}
 
 

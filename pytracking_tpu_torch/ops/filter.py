@@ -7,6 +7,12 @@ Two layouts, each one grouped convolution:
   * N images per sequence: feat (N, S, C, H, W) with filt (S, K, C, fh, fw)
     -> (N, S, K, Ho, Wo), every image of sequence s correlated with the same
     filter (what the JAX optimizer gets by vmapping over N).
+
+The filter optimisers with S > 1 sequences (LWL's objects, the batched
+server's streams) take the `*_per_sequence` forms instead: one ungrouped
+convolution per sequence. cuDNN's grouped convolutions with one output
+channel per group, and their weight gradients, made a 32-stream DiMP refit
+4.3x slower on an H100 (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -57,6 +63,22 @@ def apply_feat_transpose(feat: torch.Tensor, activations: torch.Tensor,
     k = activations.permute(1, 2, 0, 3, 4).reshape(S * K, N, Ho, Wo)
     out = F.conv2d(x, k, padding=(fh // 2, fw // 2), groups=S)       # (C, S*K, fh, fw)
     return out.reshape(C, S, K, fh, fw).permute(1, 2, 0, 3, 4)
+
+
+def apply_filter_per_sequence(feat: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """`apply_filter` of feat (N, S, C, H, W) with filt (S, K, C, fh, fw),
+    one convolution per sequence."""
+    outs = [apply_filter(feat[:, s:s + 1], filt[s:s + 1]) for s in range(feat.shape[1])]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def apply_feat_transpose_per_sequence(feat: torch.Tensor, activations: torch.Tensor,
+                                      filter_shape) -> torch.Tensor:
+    """`apply_feat_transpose` of feat (N, S, C, H, W) with activations
+    (N, S, K, Ho, Wo), one convolution per sequence."""
+    outs = [apply_feat_transpose(feat[:, s:s + 1], activations[:, s:s + 1], filter_shape)
+            for s in range(feat.shape[1])]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def filter_gradient(feat: torch.Tensor, filt: torch.Tensor,

@@ -19,6 +19,13 @@ With `defer_classifier_update` the step never refits; the caller runs
 `update_classifier_deferred` (the periodic count, masked on the device by
 the last flag).
 
+The step is written over a leading stream axis (`_step_streams` on a
+`BatchedDiMPState`): the batched server (`parallel/serving.py`) runs B
+streams through it, and a single tracker is its one-stream case, its state
+viewed as a batch of one. KYS and KeepTrack keep steps of their own and
+call the one-stream wrappers `_localize`, `_refine_target_box` and
+`_update_memory_masked`; ATOM calls `refine_target_box`.
+
 The IoU-Net box gradient is `torch.autograd.grad` of the summed IoU in the
 proposal boxes, inside `torch.no_grad()` with grad enabled for that call;
 the net's parameters are frozen, so no parameter gradient is built.
@@ -33,8 +40,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,7 +52,7 @@ from pytracking_tpu_torch.ops import augmentation as aug
 from pytracking_tpu_torch.ops import dcf
 from pytracking_tpu_torch.ops.bbox import rect_to_rel, rel_to_rect
 from pytracking_tpu_torch.ops.patch import sample_patch
-from pytracking_tpu_torch.trackers.base import BaseTracker, masked_slot_set, take
+from pytracking_tpu_torch.trackers.base import BaseTracker
 from pytracking_tpu_torch.utils.device import ieee_float32
 
 FLAG_NORMAL, FLAG_NOT_FOUND, FLAG_HARD_NEG, FLAG_UNCERTAIN = 0, 1, 2, 3
@@ -147,35 +155,114 @@ class DiMPState:
     max_score: torch.Tensor        # ()
 
 
+@dataclass
+class BatchedDiMPState:
+    """`DiMPState` of B streams: every per-stream field with a leading
+    stream axis, the memory with the stream axis second (the filter
+    optimiser's (N, S, ...) layout, so a refit reads it without a copy)."""
+    pos: torch.Tensor              # (B, 2) (y, x)
+    target_sz: torch.Tensor        # (B, 2) (h, w)
+    target_scale: torch.Tensor     # (B,)
+    base_target_sz: torch.Tensor   # (B, 2)
+    image_sz: torch.Tensor         # (B, 2) (H, W)
+    min_scale: torch.Tensor        # (B,)
+    max_scale: torch.Tensor        # (B,)
+    target_filter: torch.Tensor    # (B, 1, C, fh, fw)
+    mem_samples: torch.Tensor      # (M, B, C, Hf, Wf)
+    mem_boxes: torch.Tensor        # (M, B, 4) xywh in patch coordinates
+    mem_weights: torch.Tensor      # (M, B)
+    num_stored: torch.Tensor       # (B,) int32
+    num_init: torch.Tensor         # (B,) int32
+    prev_ind: torch.Tensor         # (B,) int32, -1 = none
+    iou_mod3: torch.Tensor         # (B, D)
+    iou_mod4: torch.Tensor         # (B, D)
+    frame_num: int                 # host count, shared by the streams
+    flag: torch.Tensor             # (B,) int32
+    max_score: torch.Tensor        # (B,)
+
+
+# DiMPState's tensor fields by layout: the memory (stream axis second), the
+# ones with a leading axis of 1 already (the stream axis), the rest
+_MEMORY = ("mem_samples", "mem_boxes", "mem_weights")
+_LEADING_ONE = ("target_filter", "iou_mod3", "iou_mod4")
+_TENSORS = tuple(f.name for f in dataclasses.fields(DiMPState) if f.name != "frame_num")
+# the fields box refinement replaces, those it reads besides, the memory's
+# counts, and what a refit reads
+_REFINED = ("pos", "target_sz", "target_scale")
+_SCALE_BOUNDS = ("base_target_sz", "min_scale", "max_scale")
+_COUNTS = ("num_stored", "num_init", "prev_ind")
+_REFIT = ("target_filter", "flag") + _MEMORY
+
+
+def _by_layout(name, memory, leading_one, other):
+    return memory if name in _MEMORY else leading_one if name in _LEADING_ONE else other
+
+
+def stack_states(states: Sequence[DiMPState]) -> BatchedDiMPState:
+    """B single-stream states (at one frame count) -> one batched state."""
+    frame_nums = {s.frame_num for s in states}
+    if len(frame_nums) != 1:
+        raise ValueError(f"streams at different frame counts {sorted(frame_nums)}")
+    return BatchedDiMPState(frame_num=states[0].frame_num, **{
+        n: _by_layout(n, lambda xs: torch.stack(xs, 1), torch.cat, torch.stack)(
+            [getattr(s, n) for s in states]) for n in _TENSORS})
+
+
+def stream_state(state: BatchedDiMPState, b: int) -> DiMPState:
+    """Stream b's state as a single-stream `DiMPState`, every tensor a copy
+    (the single tracker writes its memory in place)."""
+    return DiMPState(frame_num=state.frame_num, **{
+        n: _by_layout(n, lambda x: x[:, b], lambda x: x[b:b + 1], lambda x: x[b])(
+            getattr(state, n)).clone() for n in _TENSORS})
+
+
+def _one_stream(state, names) -> dict:
+    """The named fields of a single-stream state as one stream of a batch,
+    every tensor a view (the step's in-place memory writes reach it)."""
+    return {n: _by_layout(n, lambda x: x[:, None], lambda x: x, lambda x: x[None])(
+        getattr(state, n)) for n in names}
+
+
+def _unbatch(fields: dict) -> dict:
+    """`_one_stream`'s inverse on stream-axis tensors of one stream."""
+    return {n: _by_layout(n, lambda x: x[:, 0], lambda x: x, lambda x: x[0])(x)
+            for n, x in fields.items()}
+
+
 def _get_iounet_box(pos, sz, sample_pos, sample_scale, img_sample_sz) -> torch.Tensor:
     """Image-coordinate target (y, x) centre and (h, w) size -> (x, y, w, h)
-    box in the patch frame."""
+    box in the patch frame. Over a stream axis, pos and sz (B, 2) and
+    sample_scale (B, 1)."""
     box_center = (pos - sample_pos) / sample_scale + (img_sample_sz - 1) / 2
     box_sz = sz / sample_scale
     target_ul = box_center - (box_sz - 1) / 2
-    return torch.cat([target_ul.flip(-1), box_sz.flip(-1)])
+    return torch.cat([target_ul.flip(-1), box_sz.flip(-1)], dim=-1)
 
 
-def refine_target_box(p, iou_fn, state, sample_pos, sample_scale, img_sample_sz,
-                      jitter_scale, uniform, found, update_scale=True):
-    """IoU-Net gradient ascent on the current box and `num_init_random_boxes`
-    jittered copies (jitter from `uniform(shape)` U[0, 1) draws), in the box
-    space (the step scaled by the box size) or the relative space
-    (cx/σ, cy/σ, log w, log h), σ the current box's size. The step length is
-    a scalar or a (pos, sz) pair, the pair giving [pos, pos, sz, sz] per
-    coordinate. The mean of the best `iounet_k` boxes of valid aspect ratio
-    becomes the target where `found`. `iou_fn` maps (B, 4) patch boxes to
-    (B,) IoUs; `state` brings pos, target_sz, target_scale, base_target_sz
-    and the scale bounds. Returns the new (pos, target_sz, target_scale).
-    The DiMP family and ATOM share it."""
-    init_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
-                               img_sample_sz)
-    square_sz = torch.sqrt(torch.prod(init_box[2:]))
-    rand_bb = (uniform((p.num_init_random_boxes, 4)) - 0.5) * (square_sz * jitter_scale)
-    new_sz = torch.maximum(init_box[2:] + rand_bb[:, 2:], torch.min(init_box[2:]) / 3)
-    new_center = (init_box[:2] + init_box[2:] / 2) + rand_bb[:, :2]
-    jittered = torch.cat([new_center - new_sz / 2, new_sz], dim=1)
-    boxes = torch.cat([init_box[None], jittered])                    # (B + 1, 4)
+def refine_target_boxes(p, iou_fn, state, sample_pos, sample_scale, img_sample_sz,
+                        jitter_scale, uniform, found, update_scale=True):
+    """IoU-Net gradient ascent per stream on the current box and
+    `num_init_random_boxes` jittered copies (jitter from `uniform(shape)`,
+    (B,) + shape U[0, 1) draws), in the box space (the step scaled by the box
+    size) or the relative space (cx/σ, cy/σ, log w, log h), σ the current
+    box's size. The step length is a scalar or a (pos, sz) pair, the pair
+    giving [pos, pos, sz, sz] per coordinate. The mean of the best
+    `iounet_k` boxes of valid aspect ratio becomes the target where `found`.
+    `iou_fn` maps (B, P, 4) patch boxes to (B, P) IoUs; each IoU depends on
+    its own box only, so one gradient of the sum is every box's own.
+    `state` brings pos, target_sz (B, 2), target_scale, base_target_sz and
+    the scale bounds; sample_pos (B, 2), sample_scale and found (B,).
+    Returns the new (pos (B, 2), target_sz (B, 2), target_scale (B,))."""
+    init_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale[:, None],
+                               img_sample_sz)                                # (B, 4)
+    square_sz = torch.sqrt(torch.prod(init_box[:, 2:], -1))
+    rand_bb = (uniform((p.num_init_random_boxes, 4)) - 0.5) * \
+        (square_sz[:, None, None] * jitter_scale)                           # (B, K, 4)
+    new_sz = torch.maximum(init_box[:, None, 2:] + rand_bb[..., 2:],
+                           (init_box[:, 2:].amin(-1) / 3)[:, None, None])
+    new_center = (init_box[:, :2] + init_box[:, 2:] / 2)[:, None] + rand_bb[..., :2]
+    jittered = torch.cat([new_center - new_sz / 2, new_sz], dim=-1)
+    boxes = torch.cat([init_box[:, None], jittered], dim=1)                  # (B, K + 1, 4)
 
     step = p.box_refinement_step_length
     if isinstance(step, (tuple, list)):
@@ -185,7 +272,7 @@ def refine_target_box(p, iou_fn, state, sample_pos, sample_scale, img_sample_sz,
         step = torch.where(torch.arange(4, device=boxes.device) < 2, float(pos_step),
                            float(sz_step))
     if p.box_refinement_space == "relative":
-        sz_norm = boxes[0:1, 2:]
+        sz_norm = boxes[:, 0:1, 2:]
         boxes_rel = rect_to_rel(boxes, sz_norm)
         for _ in range(p.box_refinement_iter):
             with torch.enable_grad():
@@ -199,34 +286,52 @@ def refine_target_box(p, iou_fn, state, sample_pos, sample_scale, img_sample_sz,
             with torch.enable_grad():
                 b = boxes.detach().requires_grad_(True)
                 grad, = torch.autograd.grad(iou_fn(b).sum(), b)
-            boxes = boxes + step * grad * boxes[:, 2:].repeat(1, 2)
+            boxes = boxes + step * grad * boxes[..., 2:].repeat(1, 1, 2)
             step = step * p.box_refinement_step_decay
     iou = iou_fn(boxes)
 
     # drop degenerate aspect ratios by -inf
-    boxes = torch.cat([boxes[:, :2], torch.clamp(boxes[:, 2:], min=1.0)], dim=1)
-    ar = boxes[:, 2] / boxes[:, 3]
+    boxes = torch.cat([boxes[..., :2], torch.clamp(boxes[..., 2:], min=1.0)], dim=-1)
+    ar = boxes[..., 2] / boxes[..., 3]
     valid = (ar < p.maximal_aspect_ratio) & (ar > 1 / p.maximal_aspect_ratio)
     iou = torch.where(valid, iou, -math.inf)
 
     # top k, the first index on ties (stable sort, as lax.top_k)
-    k = min(p.iounet_k, boxes.shape[0])
-    top_iou, top_idx = torch.sort(iou, descending=True, stable=True)
-    top_iou, top_idx = top_iou[:k], top_idx[:k]
+    k = min(p.iounet_k, boxes.shape[1])
+    top_iou, top_idx = torch.sort(iou, dim=-1, descending=True, stable=True)
+    top_iou, top_idx = top_iou[:, :k], top_idx[:, :k]
     top_valid = torch.isfinite(top_iou)
-    denom = torch.clamp(top_valid.sum(), min=1)
-    pred_box = torch.where(top_valid[:, None], boxes[top_idx], 0.0).sum(0) / denom
+    denom = torch.clamp(top_valid.sum(-1), min=1)
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+    pred_box = torch.where(top_valid[..., None], top_boxes, 0.0).sum(1) / denom[:, None]
 
-    new_pos = pred_box[:2] + pred_box[2:] / 2
-    new_pos = (new_pos.flip(-1) - (img_sample_sz - 1) / 2) * sample_scale + sample_pos
-    new_target_sz = pred_box[2:].flip(-1) * sample_scale
-    new_scale = torch.sqrt(torch.prod(new_target_sz) / torch.prod(state.base_target_sz))
+    new_pos = pred_box[:, :2] + pred_box[:, 2:] / 2
+    new_pos = (new_pos.flip(-1) - (img_sample_sz - 1) / 2) * sample_scale[:, None] + sample_pos
+    new_target_sz = pred_box[:, 2:].flip(-1) * sample_scale[:, None]
+    new_scale = torch.sqrt(torch.prod(new_target_sz, -1) / torch.prod(state.base_target_sz, -1))
 
-    apply = found & valid.any()
+    apply = found & valid.any(-1)
     new_scale = torch.minimum(torch.maximum(new_scale, state.min_scale), state.max_scale)
-    return (torch.where(apply & p.use_iounet_pos_for_learning, new_pos, state.pos),
-            torch.where(apply, new_target_sz, state.target_sz),
+    return (torch.where((apply & p.use_iounet_pos_for_learning)[:, None], new_pos, state.pos),
+            torch.where(apply[:, None], new_target_sz, state.target_sz),
             torch.where(apply & update_scale, new_scale, state.target_scale))
+
+
+def _one(x):
+    """A per-stream scalar of one stream (a 0-dim tensor, or True) as (1,)."""
+    return x.reshape(1) if isinstance(x, torch.Tensor) else x
+
+
+def refine_target_box(p, iou_fn, state, sample_pos, sample_scale, img_sample_sz,
+                      jitter_scale, uniform, found, update_scale=True):
+    """`refine_target_boxes` for one stream: `iou_fn` maps (P, 4) boxes to
+    (P,) IoUs, `uniform(shape)` returns shape; the state's fields, sample_pos
+    (2,), sample_scale and found () carry no stream axis. ATOM uses it."""
+    one = types.SimpleNamespace(**{n: getattr(state, n)[None] for n in _REFINED + _SCALE_BOUNDS})
+    new = refine_target_boxes(p, lambda b: iou_fn(b[0])[None], one, sample_pos[None],
+                              _one(sample_scale), img_sample_sz, jitter_scale,
+                              lambda shape: uniform(shape)[None], _one(found), _one(update_scale))
+    return tuple(x[0] for x in new)
 
 
 class DiMPTracker(BaseTracker):
@@ -308,14 +413,9 @@ class DiMPTracker(BaseTracker):
         optimiser pass over the memory with the periodic iteration count,
         kept on the device only where the last flag allows an update. The
         caller runs it on the train_skipping cadence."""
-        p = self.params
-        state = self.state
-        new_filter = self.net.classifier.filter_optimizer(
-            state.target_filter, state.mem_samples[:, None], state.mem_boxes[:, None],
-            sample_weight=state.mem_weights[:, None], num_iter=p.net_opt_update_iter)
-        ok = (state.flag != FLAG_NOT_FOUND) & (state.flag != FLAG_UNCERTAIN)
-        self.state = dataclasses.replace(
-            state, target_filter=torch.where(ok, new_filter, state.target_filter))
+        self.state = dataclasses.replace(self.state, target_filter=self._refit_streams(
+            types.SimpleNamespace(**_one_stream(self.state, _REFIT)),
+            self.params.net_opt_update_iter, mask_by_flag=True))
 
     # ---------------------------------------------------------------- initialize
 
@@ -410,25 +510,40 @@ class DiMPTracker(BaseTracker):
                             im_sz=state.image_sz)
 
     def _track_from_patch(self, state: DiMPState, patch, coords):
+        """The step of one stream: `_step_streams` on a batch of one."""
+        streams = BatchedDiMPState(frame_num=state.frame_num, **_one_stream(state, _TENSORS))
+        streams, out = self._step_streams(streams, patch[None], coords[None],
+                                          lambda shape: self._uniform(shape)[None])
+        return (dataclasses.replace(state, frame_num=streams.frame_num,
+                                    **_unbatch({n: getattr(streams, n) for n in _TENSORS})),
+                {k: v[0] for k, v in out.items()})
+
+    def _step_streams(self, state: BatchedDiMPState, patch, coords, uniform):
+        """One frame of B streams from their search patches (B, 3, s, s) and
+        the patches' extents (B, 4) in the images: (the new state,
+        {'target_bbox' (B, 4), 'max_score' (B,), 'flag' (B,)}), all on the
+        device. The memory is updated in place; the filter is left as it is
+        (the refit follows the readback). `uniform(shape)` returns (B,) +
+        shape U[0, 1) draws (the box jitter)."""
         p = self.params
         net = self.net
         img_sample_sz = self._img_sample_sz
         state = dataclasses.replace(state, frame_num=state.frame_num + 1)
 
-        sample_pos = 0.5 * (coords[:2] + coords[2:])
-        sample_scale = torch.sqrt(torch.prod((coords[2:] - coords[:2]) / img_sample_sz))
+        sample_pos = 0.5 * (coords[:, :2] + coords[:, 2:])
+        sample_scale = torch.sqrt(torch.prod((coords[:, 2:] - coords[:, :2]) / img_sample_sz, -1))
 
-        backbone_feat = net.extract_backbone(patch[None])
-        test_x = net.extract_classification_feat(backbone_feat)           # (1, C, Hf, Wf)
-        scores = net.classifier.classify(state.target_filter, test_x)[0, 0]
+        backbone_feat = net.extract_backbone(patch)
+        test_x = net.extract_classification_feat(backbone_feat)              # (B, C, Hf, Wf)
+        scores = net.classifier.classify(state.target_filter, test_x)[:, 0]  # (B, Hs, Ws)
         if p.score_preprocess == "exp":
             scores = torch.exp(scores)
         elif p.score_preprocess == "softmax":
-            scores = act.softmax_reg(scores.reshape(-1), dim=-1,
+            scores = act.softmax_reg(scores.flatten(1), dim=-1,
                                      reg=p.softmax_reg).reshape(scores.shape)
 
-        translation_vec, flag, max_score = self._localize(state, scores, sample_pos,
-                                                          sample_scale)
+        translation_vec, flag, max_score = self._localize_streams(state, scores, sample_pos,
+                                                                  sample_scale)
         new_pos = sample_pos + translation_vec
         found = flag != FLAG_NOT_FOUND
         if not p.use_iou_net:
@@ -438,41 +553,52 @@ class DiMPTracker(BaseTracker):
                                       state.max_scale)
             state = dataclasses.replace(
                 state, target_scale=torch.where(found, new_scale, state.target_scale),
-                target_sz=torch.where(found, state.base_target_sz * new_scale, state.target_sz))
+                target_sz=torch.where(found[:, None], state.base_target_sz * new_scale[:, None],
+                                      state.target_sz))
         inside_offset = (p.target_inside_ratio - 0.5) * state.target_sz
         clamped = torch.maximum(torch.minimum(new_pos, state.image_sz - inside_offset),
                                 inside_offset)
-        state = dataclasses.replace(state, pos=torch.where(found, clamped, state.pos))
+        state = dataclasses.replace(state, pos=torch.where(found[:, None], clamped, state.pos))
 
         if p.use_iou_net:
             update_scale = True if p.update_scale_when_uncertain else flag != FLAG_UNCERTAIN
-            state = self._refine_target_box(state, backbone_feat, sample_pos, sample_scale,
-                                            found, update_scale)
+            refined = self._refine_streams(state, backbone_feat, sample_pos, sample_scale, found,
+                                           update_scale, uniform)
+            state = dataclasses.replace(state, **dict(zip(_REFINED, refined)))
 
         if p.update_classifier:
             update_flag = (flag != FLAG_NOT_FOUND) & (flag != FLAG_UNCERTAIN)
-            target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
-                                         img_sample_sz)
+            target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos,
+                                         sample_scale[:, None], img_sample_sz)
             lr = torch.where(flag == FLAG_HARD_NEG, p.hard_negative_learning_rate,
                              p.learning_rate)
-            state = self._update_memory_masked(state, test_x[0], target_box, lr, update_flag)
+            state = dataclasses.replace(state, **self._update_memory_streams(
+                state, test_x, target_box, lr, update_flag))
 
         state = dataclasses.replace(state, flag=flag, max_score=max_score)
         bbox = torch.cat([state.pos.flip(-1) - (state.target_sz.flip(-1) - 1) / 2,
-                          state.target_sz.flip(-1)])
+                          state.target_sz.flip(-1)], dim=-1)
         return state, {"target_bbox": bbox, "max_score": max_score, "flag": flag}
 
     # ---------------------------------------------------------------- localisation
 
     def _localize(self, state: DiMPState, scores, sample_pos, sample_scale):
-        """Localisation on the (Hs, Ws) score map, with the distractor
-        analysis when `advanced_localization`: (translation (2,), flag ()
-        int32, max score ())."""
+        """`_localize_streams` for one stream: scores (Hs, Ws) -> (translation
+        (2,), flag () int32, max score ())."""
+        one = types.SimpleNamespace(pos=state.pos[None], target_sz=state.target_sz[None])
+        trans, flag, max_score = self._localize_streams(one, scores[None], sample_pos[None],
+                                                        _one(sample_scale))
+        return trans[0], flag[0], max_score[0]
+
+    def _localize_streams(self, state, scores, sample_pos, sample_scale):
+        """Localisation per stream on the (B, Hs, Ws) score maps, with the
+        distractor analysis when `advanced_localization`: (translation
+        (B, 2), flag (B,) int32, max score (B,))."""
         p = self.params
         img_sample_sz = self._img_sample_sz
         output_sz = float(self._feature_sz)     # score cells stride the feature grid
         h, w = scores.shape[-2], scores.shape[-1]
-        disp_to_img = (img_sample_sz / output_sz) * sample_scale
+        disp_to_img = (img_sample_sz / output_sz) * sample_scale[:, None]     # (B, 2)
 
         scores_hn = scores
         if self._window is not None and p.perform_hn_without_windowing:
@@ -484,24 +610,27 @@ class DiMPTracker(BaseTracker):
         target_disp1 = max_disp1 - self._score_center
         translation_vec1 = target_disp1 * disp_to_img
         if not p.advanced_localization:
-            return (translation_vec1, torch.zeros((), dtype=torch.int32, device=scores.device),
+            return (translation_vec1,
+                    torch.zeros(scores.shape[:1], dtype=torch.int32, device=scores.device),
                     max_score1)
 
         # mask the target neighbourhood and find the second peak
-        target_neigh_sz = p.target_neighborhood_scale * (state.target_sz / sample_scale) * \
-            (output_sz / img_sample_sz)
-        iy = torch.arange(h, dtype=torch.float32, device=scores.device)[:, None]
-        ix = torch.arange(w, dtype=torch.float32, device=scores.device)[None, :]
-        in_neigh = ((torch.abs(iy - max_disp1[0]) <= target_neigh_sz[0] / 2 + 0.5)
-                    & (torch.abs(ix - max_disp1[1]) <= target_neigh_sz[1] / 2 + 0.5))
+        target_neigh_sz = p.target_neighborhood_scale * \
+            (state.target_sz / sample_scale[:, None]) * (output_sz / img_sample_sz)
+        iy = torch.arange(h, dtype=torch.float32, device=scores.device)[None, :, None]
+        ix = torch.arange(w, dtype=torch.float32, device=scores.device)[None, None, :]
+        in_neigh = ((torch.abs(iy - max_disp1[:, 0, None, None])
+                     <= target_neigh_sz[:, 0, None, None] / 2 + 0.5)
+                    & (torch.abs(ix - max_disp1[:, 1, None, None])
+                       <= target_neigh_sz[:, 1, None, None] / 2 + 0.5))
         max_score2, max_disp2 = dcf.max2d(torch.where(in_neigh, 0.0, scores_hn))
         target_disp2 = max_disp2.float() - self._score_center
         translation_vec2 = target_disp2 * disp_to_img
 
         # the previous position in score cells from this sample's centre
         prev_target_vec = (state.pos - sample_pos) / disp_to_img
-        disp_norm1 = torch.sqrt(torch.sum((target_disp1 - prev_target_vec) ** 2))
-        disp_norm2 = torch.sqrt(torch.sum((target_disp2 - prev_target_vec) ** 2))
+        disp_norm1 = torch.sqrt(torch.sum((target_disp1 - prev_target_vec) ** 2, -1))
+        disp_norm2 = torch.sqrt(torch.sum((target_disp2 - prev_target_vec) ** 2, -1))
         disp_threshold = p.displacement_scale * math.sqrt(h * w) / 2
 
         distractor = max_score2 > p.distractor_threshold * max_score1
@@ -512,75 +641,102 @@ class DiMPTracker(BaseTracker):
                      & (max_score2 > p.target_not_found_threshold))
 
         trans = translation_vec1
-        flag = torch.zeros((), dtype=torch.int32, device=scores.device)
+        flag = torch.zeros(scores.shape[:1], dtype=torch.int32, device=scores.device)
         flag = torch.where(hard_neg2, FLAG_HARD_NEG, flag)
         flag = torch.where(uncertain_both, FLAG_UNCERTAIN, flag)
         flag = torch.where(hn2, FLAG_HARD_NEG, flag)
-        trans = torch.where(hn2, translation_vec2, trans)
+        trans = torch.where(hn2[:, None], translation_vec2, trans)
         flag = torch.where(hn1, FLAG_HARD_NEG, flag)
-        trans = torch.where(hn1, translation_vec1, trans)
+        trans = torch.where(hn1[:, None], translation_vec1, trans)
         # the score thresholds dominate, the not-found one most
         flag = torch.where(max_score1 < p.hard_sample_threshold, FLAG_HARD_NEG, flag)
         flag = torch.where(max_score1 < p.uncertain_threshold, FLAG_UNCERTAIN, flag)
         not_found = max_score1 < p.target_not_found_threshold
         flag = torch.where(not_found, FLAG_NOT_FOUND, flag)
-        trans = torch.where(not_found, translation_vec1, trans)
+        trans = torch.where(not_found[:, None], translation_vec1, trans)
         return trans, flag, max_score1
 
     # ---------------------------------------------------------------- box refinement
 
     def _refine_target_box(self, state: DiMPState, backbone_feat, sample_pos, sample_scale,
                            found, update_scale=True) -> DiMPState:
-        """IoU-Net ascent from the current box (`refine_target_box`)."""
+        """`_refine_streams` for one stream (KYS and KeepTrack call it)."""
+        one = types.SimpleNamespace(**_one_stream(state, _REFINED + _SCALE_BOUNDS
+                                                  + ("iou_mod3", "iou_mod4")))
+        refined = self._refine_streams(one, backbone_feat, sample_pos[None], _one(sample_scale),
+                                       _one(found), _one(update_scale),
+                                       lambda shape: self._uniform(shape)[None])
+        return dataclasses.replace(state, **{n: x[0] for n, x in zip(_REFINED, refined)})
+
+    def _refine_streams(self, state, backbone_feat, sample_pos, sample_scale, found,
+                        update_scale, uniform):
+        """IoU-Net ascent from each stream's box with its own modulation
+        vectors (`refine_target_boxes`): the new (pos, target_sz,
+        target_scale)."""
         net = self.net
         iou_feat = net.bb_regressor.get_iou_feat(net.get_backbone_bbreg_feat(backbone_feat))
         modulation = (state.iou_mod3, state.iou_mod4)
-        pos, target_sz, target_scale = refine_target_box(
-            self.params, lambda b: net.bb_regressor.predict_iou(modulation, iou_feat, b[None])[0],
-            state, sample_pos, sample_scale, self._img_sample_sz, self._jitter_scale,
-            self._uniform, found, update_scale)
-        return dataclasses.replace(state, pos=pos, target_sz=target_sz, target_scale=target_scale)
+        return refine_target_boxes(
+            self.params, lambda b: net.bb_regressor.predict_iou(modulation, iou_feat, b), state,
+            sample_pos, sample_scale, self._img_sample_sz, self._jitter_scale, uniform, found,
+            update_scale)
 
     # ---------------------------------------------------------------- memory
 
     def _update_memory_masked(self, state: DiMPState, sample, target_box, lr,
                               do_update, replace_key=None) -> DiMPState:
-        """Weighted-replacement ring-buffer update, masked by `do_update`:
-        the new sample replaces the slot after the initial ones with the
-        least `replace_key` (the weight when none is given)."""
+        """`_update_memory_streams` for one stream (KYS and KeepTrack call
+        it): sample (C, Hf, Wf), target_box (4,), replace_key (M,)."""
+        one = types.SimpleNamespace(**_one_stream(state, _MEMORY + _COUNTS))
+        new = self._update_memory_streams(one, sample[None], target_box[None], lr,
+                                          _one(do_update),
+                                          None if replace_key is None else replace_key[:, None])
+        return dataclasses.replace(state, **_unbatch(new))
+
+    def _update_memory_streams(self, state, sample, target_box, lr, do_update,
+                               replace_key=None) -> dict:
+        """Weighted-replacement ring-buffer update per stream, masked by
+        `do_update` (B,): each stream's new sample (B, C, Hf, Wf) and box
+        (B, 4) replace its slot after the initial ones with the least
+        `replace_key` (M, B) (the weight when none is given), chosen on the
+        device; the B slots are written by one indexed write in place.
+        Returns the new mem_weights, num_stored and prev_ind."""
         p = self.params
         M = p.sample_memory_size
-        sw = state.mem_weights
+        sw = state.mem_weights                                                # (M, B)
         num_init = state.num_init
         num_stored = state.num_stored
         init_w = p.init_samples_minimum_weight
+        B = sw.shape[1]
 
-        idx = torch.arange(M, device=self.device)
+        idx = torch.arange(M, device=sw.device)[:, None]
         s_ind = num_init if init_w > 0 else 0
         key = sw if replace_key is None else replace_key
-        r_ind_full = torch.argmin(torch.where(idx >= s_ind, key, math.inf))
-        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)
+        r_ind_full = torch.argmin(torch.where(idx >= s_ind, key, math.inf), dim=0)
+        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)      # (B,)
 
         prev = state.prev_ind
         sw_new = torch.where(prev < 0, sw / (1 - lr), sw)
-        new_w = torch.where(prev < 0, lr, take(sw, torch.clamp(prev, min=0)) / (1 - lr))
+        prev_w = sw.gather(0, torch.clamp(prev, min=0).long()[None])[0]
+        new_w = torch.where(prev < 0, lr, prev_w / (1 - lr))
         sw_new = torch.where(idx == r_ind, new_w, sw_new)
-        sw_new = sw_new / sw_new.sum()
+        sw_new = sw_new / sw_new.sum(0)
         if init_w > 0:
             init_mask = idx < num_init
-            init_sum = torch.where(init_mask, sw_new, 0.0).sum()
-            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum()
+            init_sum = torch.where(init_mask, sw_new, 0.0).sum(0)
+            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum(0)
             sw_adj = torch.where(init_mask, init_w / torch.clamp(num_init, min=1),
                                  sw_new * (1.0 / (init_w + rest_sum)))
             sw_new = torch.where(init_sum < init_w, sw_adj, sw_new)
 
-        masked_slot_set(state.mem_samples, r_ind, sample, do_update)
-        masked_slot_set(state.mem_boxes, r_ind, target_box, do_update)
-        return dataclasses.replace(
-            state,
-            mem_weights=torch.where(do_update, sw_new, state.mem_weights),
-            num_stored=torch.where(do_update, torch.clamp(num_stored + 1, max=M), num_stored),
-            prev_ind=torch.where(do_update, r_ind.to(torch.int32), state.prev_ind))
+        streams = torch.arange(B, device=sw.device)
+        for buf, value in ((state.mem_samples, sample), (state.mem_boxes, target_box)):
+            keep = do_update.reshape((B,) + (1,) * (value.dim() - 1))
+            buf.index_put_((r_ind, streams), torch.where(keep, value, buf[r_ind, streams]))
+        return {"mem_weights": torch.where(do_update, sw_new, state.mem_weights),
+                "num_stored": torch.where(do_update, torch.clamp(num_stored + 1, max=M),
+                                          num_stored),
+                "prev_ind": torch.where(do_update, r_ind.to(torch.int32), state.prev_ind)}
 
     def _classifier_iterations(self, flag: int, frame_num: int) -> int:
         """Optimiser iterations for this frame: the hard-negative count on a
@@ -602,14 +758,34 @@ class DiMPTracker(BaseTracker):
         p = self.params
         if not p.update_classifier or p.defer_classifier_update:
             return
-        state = self.state
-        num_iter = self._classifier_iterations(flag, state.frame_num)
+        num_iter = self._classifier_iterations(flag, self.state.frame_num)
         if num_iter == 0:
             return
-        new_filter = self.net.classifier.filter_optimizer(
-            state.target_filter, state.mem_samples[:, None], state.mem_boxes[:, None],
-            sample_weight=state.mem_weights[:, None], num_iter=num_iter)
-        self.state = dataclasses.replace(state, target_filter=new_filter)
+        self.state = dataclasses.replace(self.state, target_filter=self._refit_streams(
+            types.SimpleNamespace(**_one_stream(self.state, _REFIT)), num_iter))
+
+    def _refit_streams(self, state, num_iter: int, streams: Optional[torch.Tensor] = None,
+                       mask_by_flag: bool = False) -> torch.Tensor:
+        """`num_iter` optimiser iterations over the memories of a stream-axis
+        state, the streams as the optimiser's sequence axis: all streams, or
+        those of the device index tensor `streams` (the others keep their
+        filters). With `mask_by_flag` a stream keeps its filter where its
+        last flag allows no update (the deferred update). Returns the
+        filters (B, 1, C, fh, fw)."""
+        opt = self.net.classifier.filter_optimizer
+        if streams is None:
+            new_filter = opt(state.target_filter, state.mem_samples, state.mem_boxes,
+                             sample_weight=state.mem_weights, num_iter=num_iter)
+        else:
+            new_filter = state.target_filter.index_copy(0, streams, opt(
+                state.target_filter[streams], state.mem_samples[:, streams],
+                state.mem_boxes[:, streams], sample_weight=state.mem_weights[:, streams],
+                num_iter=num_iter))
+        if mask_by_flag:
+            ok = (state.flag != FLAG_NOT_FOUND) & (state.flag != FLAG_UNCERTAIN)
+            new_filter = torch.where(ok[:, None, None, None, None], new_filter,
+                                     state.target_filter)
+        return new_filter
 
 
 def get_tracker_class():

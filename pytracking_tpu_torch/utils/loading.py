@@ -6,8 +6,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pytracking_tpu_torch.models.layers.blocks import BatchNorm
-
 
 @torch.no_grad()
 def round_to_bf16_(net: nn.Module) -> nn.Module:
@@ -18,13 +16,15 @@ def round_to_bf16_(net: nn.Module) -> nn.Module:
     rounded values, as here. flax's BatchNorm with bf16 statistics computes
     its multiplier rsqrt(var + eps) * scale in bf16 arithmetic, and on a
     bf16 input (the bf16 backbone) the whole normalisation: the BatchNorms
-    are marked to do the same (`BatchNorm.param_dtype`). A float32 net with
+    are marked to do the same (`BatchNorm.param_dtype`), and so are the
+    filter optimisers, which compute their step length and regulariser
+    from the parameters alone (`param_dtype`). A float32 net with
     rounded weights (LWL's `weights_bf16`) thus matches flax promoting bf16
     parameters to float32 activations."""
     for t in net.state_dict().values():
         if t.dtype == torch.float32:
             t.copy_(t.to(torch.bfloat16))
     for m in net.modules():
-        if isinstance(m, BatchNorm):
+        if hasattr(m, "param_dtype"):
             m.param_dtype = torch.bfloat16
     return net

@@ -200,9 +200,9 @@ def dimp_stage_table(tracker):
     return {"backbone": (net, "extract_backbone"),
             "classification feature": (net, "extract_classification_feat"),
             "classification scores": (net.classifier, "classify"),
-            "localisation": (tracker, "_localize"),
-            "box refinement (IoU features, ascent steps)": (tracker, "_refine_target_box"),
-            "memory update": (tracker, "_update_memory_masked"),
+            "localisation": (tracker, "_localize_streams"),
+            "box refinement (IoU features, ascent steps)": (tracker, "_refine_streams"),
+            "memory update": (tracker, "_update_memory_streams"),
             "classifier refit": (tracker, "_update_classifier")}
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
-scripts/lwl_check.py, scripts/atom_eco_check.py)
+scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py)
 import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
@@ -20,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
 PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py", "kys_check.py",
-                "keep_track_check.py", "lwl_check.py", "atom_eco_check.py")
+                "keep_track_check.py", "lwl_check.py", "atom_eco_check.py", "serving_check.py")
 
 
 def _port_sources():
@@ -207,6 +207,26 @@ def test_atom_eco_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         importlib.import_module("pytracking_tpu_torch.parameter.eco.default").parameters(
             backbone_dtype=torch.bfloat16)
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    """The batched server defaults to the card and refuses to run without
+    one, with the bf16 default and without it; so does the launch count
+    of scripts/serving_check.py unless it is asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.parallel.serving import BatchedTrackerServer
+    from pytracking_tpu_torch.trackers.dimp import DiMPParams, DiMPTracker
+
+    for kw in ({}, dict(bf16=False), dict(bf16=True), dict(device="cuda:0")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BatchedTrackerServer(DiMPTracker, DiMPParams(), torch.nn.Linear(1, 1), **kw)
+    monkeypatch.setenv("PYTRACKING_TPU_SERVING_BF16", "0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedTrackerServer(DiMPTracker, DiMPParams(), torch.nn.Linear(1, 1))
+    res = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "serving_check.py"),
+                          "launches"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "CUDA" in res.stderr
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
