@@ -16,9 +16,12 @@ from typing import Optional
 import torch
 
 from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.dimp import DiMPParams
 from pytracking_tpu_torch.utils.loading import round_to_bf16_
+
+precision_kwargs = precision.dtype_or_backbone
 
 
 def params() -> DiMPParams:
@@ -27,9 +30,16 @@ def params() -> DiMPParams:
 
 def parameters(device="cuda", seed: int = 0, dtype: torch.dtype = torch.float32,
                backbone_dtype: Optional[torch.dtype] = None) -> TrackerSpec:
+    return TrackerSpec(params=params(),
+                       net=build_net(device, seed, dtype, backbone_dtype))
+
+
+def build_net(device, seed: int, dtype: torch.dtype, backbone_dtype: Optional[torch.dtype]):
+    """DiMP-50's net at `dtype` (also for the VOT sets, which keep DiMP-50's
+    net and its precision options)."""
     bf16 = dtype == torch.bfloat16
     net = dimpnet50(generator=torch.Generator().manual_seed(seed), device=device,
                     backbone_dtype=torch.bfloat16 if bf16 else backbone_dtype)
     if bf16:
         round_to_bf16_(net)
-    return TrackerSpec(params=params(), net=net)
+    return net

@@ -4,13 +4,15 @@ large memory, more augmentations, the windowed output and VOT-style
 thresholds."""
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
 from pytracking_tpu_torch.parameter.dimp import dimp50
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.dimp import DiMPParams
+
+precision_kwargs = dimp50.precision_kwargs
 
 VOT18 = dict(
     image_sample_size=14 * 16, search_area_scale=4.0, sample_memory_size=250,
@@ -31,6 +33,8 @@ def params() -> DiMPParams:
         distractor_threshold=100.0, displacement_scale=0.7)
 
 
-def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = dimpnet50(generator=torch.Generator().manual_seed(seed), device=device)
-    return TrackerSpec(params=params(), net=net)
+def parameters(device="cuda", seed: int = 0, dtype: torch.dtype = torch.float32,
+               backbone_dtype: Optional[torch.dtype] = None) -> TrackerSpec:
+    """DiMP-50's net with its precision options (`dimp50.parameters`)."""
+    return TrackerSpec(params=params(),
+                       net=dimp50.build_net(device, seed, dtype, backbone_dtype))

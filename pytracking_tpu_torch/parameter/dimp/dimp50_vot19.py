@@ -3,13 +3,15 @@ pytracking_tpu/parameter/dimp/dimp50_vot19.py): VOT2018's with a 256x256
 sample, memory 100, fewer augmentations and 3 box-refinement steps."""
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
-from pytracking_tpu_torch.parameter.dimp import dimp50_vot18
+from pytracking_tpu_torch.parameter.dimp import dimp50, dimp50_vot18
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.dimp import DiMPParams
+
+precision_kwargs = dimp50.precision_kwargs
 
 
 def params() -> DiMPParams:
@@ -24,6 +26,8 @@ def params() -> DiMPParams:
         augmentation_expansion_factor=1.4, box_refinement_iter=3)
 
 
-def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = dimpnet50(generator=torch.Generator().manual_seed(seed), device=device)
-    return TrackerSpec(params=params(), net=net)
+def parameters(device="cuda", seed: int = 0, dtype: torch.dtype = torch.float32,
+               backbone_dtype: Optional[torch.dtype] = None) -> TrackerSpec:
+    """DiMP-50's net with its precision options (`dimp50.parameters`)."""
+    return TrackerSpec(params=params(),
+                       net=dimp50.build_net(device, seed, dtype, backbone_dtype))

@@ -17,9 +17,12 @@ from torch import nn
 from pytracking_tpu_torch.models.backbones import resnet as backbones
 from pytracking_tpu_torch.models.backbones.vggm_resnet import resnet18_vggmconv1
 from pytracking_tpu_torch.models.tracking.dimpnet import init_weights
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.eco import ECOParams
 from pytracking_tpu_torch.utils.device import resolve_device
+
+precision_kwargs = precision.backbone_only
 
 
 class ECOBackbone(nn.Module):

@@ -6,9 +6,12 @@ from a seeded torch.Generator; `weights_bf16` as in `lwl_ytvos`."""
 import torch
 
 from pytracking_tpu_torch.models.lwl.lwl_net import steepest_descent_resnet50_boxinit
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.lwl import LWLParams
 from pytracking_tpu_torch.utils.loading import round_to_bf16_
+
+precision_kwargs = precision.weights_only
 
 
 def params() -> LWLParams:

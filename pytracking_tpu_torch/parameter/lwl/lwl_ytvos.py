@@ -11,9 +11,12 @@ bf16 parameters with float32 activations.
 import torch
 
 from pytracking_tpu_torch.models.lwl.lwl_net import steepest_descent_resnet50
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.lwl import LWLParams
 from pytracking_tpu_torch.utils.loading import round_to_bf16_
+
+precision_kwargs = precision.weights_only
 
 
 def params() -> LWLParams:

@@ -10,9 +10,12 @@ import torch
 
 from pytracking_tpu_torch.models.lwl.sta_net import sta_resnet50
 from pytracking_tpu_torch.models.rts.rts_net import rts50
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.rts import RTSParams
 from pytracking_tpu_torch.utils.loading import round_to_bf16_
+
+precision_kwargs = precision.weights_only
 
 
 def params() -> RTSParams:

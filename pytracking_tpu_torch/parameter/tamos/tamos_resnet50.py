@@ -10,8 +10,11 @@ counterpart of PYTRACKING_TPU_BF16=1.
 import torch
 
 from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_resnet50
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.tamos import TaMOsParams
+
+precision_kwargs = precision.dtype_only
 
 
 def parameters(device="cuda", dtype: torch.dtype = torch.float32,

@@ -10,8 +10,11 @@ LayerNorm and residuals): the counterpart of PYTRACKING_TPU_BF16=1 there.
 import torch
 
 from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_swin_base
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.tamos import TaMOsParams
+
+precision_kwargs = precision.dtype_only
 
 
 def parameters(device="cuda", dtype: torch.dtype = torch.float32,

@@ -10,6 +10,8 @@ from pytracking_tpu_torch.parameter.tomp import tomp50
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.tomp import ToMPParams
 
+precision_kwargs = tomp50.precision_kwargs
+
 
 def params() -> ToMPParams:
     return ToMPParams()

@@ -13,9 +13,12 @@ from typing import Optional
 import torch
 
 from pytracking_tpu_torch.models.tracking.tompnet import tompnet50
+from pytracking_tpu_torch.parameter import precision
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.tomp import ToMPParams
 from pytracking_tpu_torch.utils.loading import round_to_bf16_
+
+precision_kwargs = precision.dtype_or_backbone
 
 
 def params() -> ToMPParams:

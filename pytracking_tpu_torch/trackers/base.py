@@ -43,6 +43,11 @@ class TrackerSpec:
 
 
 class BaseTracker:
+    # how the harness runs several objects (evaluation/tracker.py):
+    # "parallel" is one tracker per object under the MultiObjectWrapper,
+    # "default" a tracker that takes them all itself (TaMOs)
+    multiobj_mode = "parallel"
+
     def __init__(self, params, device="cuda"):
         self.params = params
         self.device = resolve_device(device)

@@ -453,7 +453,12 @@ class LWLMultiObjectTracker:
     vmapped multi-object mode): one backbone pass over the O crops, one
     grouped target model, one decoder batch, and the soft-aggregation merge
     on the device, whose aggregated probabilities stay there as the next
-    frame's previous masks. One readback per frame."""
+    frame's previous masks. One readback per frame. The harness takes it
+    for a multi-object sequence under PYTRACKING_TPU_VMAP_MULTIOBJ=1
+    (`LWLTracker.vmap_multiobj_class`); every object starts on the first
+    frame."""
+
+    multiobj_mode = "vmap"
 
     def __init__(self, params: LWLParams, net, device="cuda"):
         self.params = params
@@ -501,6 +506,9 @@ class LWLMultiObjectTracker:
                 "segmentation_raw": OrderedDict((oid, agg[i])
                                                 for i, oid in enumerate(self.object_ids)),
                 "target_bbox": {oid: bboxes[i].tolist() for i, oid in enumerate(self.object_ids)}}
+
+
+LWLTracker.vmap_multiobj_class = LWLMultiObjectTracker
 
 
 def get_tracker_class():

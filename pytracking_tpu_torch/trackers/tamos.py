@@ -78,6 +78,8 @@ class TaMOsState:
 
 
 class TaMOsTracker(BaseTracker):
+    multiobj_mode = "default"        # natively multi-object
+
     def __init__(self, params: TaMOsParams, net, device="cuda"):
         super().__init__(params, device)
         self.net = net.to(self.device).eval()
@@ -381,3 +383,6 @@ class TaMOsTracker(BaseTracker):
                                    num_stored),
             prev_ind=torch.where(do_update, r_ind.to(torch.int32), state.prev_ind))
 
+
+def get_tracker_class():
+    return TaMOsTracker

@@ -4,6 +4,7 @@ parameter/eco/*, seed 0) on chip_smoke.py's synthetic 480x640 sequence.
 
     python3 scripts/atom_eco_check.py launches [atom|eco|<module>] [cpu] [frames]
     python3 scripts/atom_eco_check.py stages [atom|eco] [frames]
+    python3 scripts/atom_eco_check.py gate [runs]
 
 launches: the operators the tracker dispatches per tracked frame (views
 excluded), counted with a TorchDispatchMode over `frames` frames (5) after
@@ -18,6 +19,12 @@ localisation, box refinement, memory, refit; ECO: Fourier samples,
 scores (which hold the Fourier samples), memory, refit): host time, device
 kernel time and kernel launches per frame under torch.profiler, over a few
 frames after the ones chip_smoke.py's phase tracks.
+
+gate: chip_smoke.py's `atom_gate` (card against CPU, each step from the
+card's state) `runs` times (3) in one process, each with new trackers of
+the same seeded net, its failed checks printed instead of raised: how far
+the card's run-to-run variation moves the refit's card-vs-CPU difference
+and the CPU's own float32-vs-float64 one.
 """
 
 import dataclasses
@@ -124,12 +131,29 @@ def stages(args):
     profile_stages(tracker, table, frames[1:n_frames + 1], frames[n_frames + 1:], label)
 
 
+def gate(args):
+    runs = int(args[0]) if args else 3
+    spec = chip_smoke.atom_spec("default")
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            failed.append(msg)
+            print(f"gate: check failed: {msg}", flush=True)
+
+    chip_smoke.check = check
+    for r in range(runs):
+        print(f"gate: run {r + 1} of {runs}", flush=True)
+        chip_smoke.phase_atom_gate(spec, tag=f"atom_gate_{r + 1}")
+    print(f"gate: {len(failed)} failed checks in {runs} runs", flush=True)
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "launches"
     if not torch.cuda.is_available() and not (mode == "launches" and "cpu" in sys.argv):
         print("atom_eco_check: needs a CUDA card (launches: or `cpu`)", file=sys.stderr)
         return 2
-    {"launches": launches, "stages": stages}[mode](sys.argv[2:])
+    {"launches": launches, "stages": stages, "gate": gate}[mode](sys.argv[2:])
     return 0
 
 

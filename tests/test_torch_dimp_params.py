@@ -70,10 +70,14 @@ def test_parameter_module_matches_jax(name, jax_params, monkeypatch):
     assert spec.net == NETS[name]                      # the JAX module's net
     port = importlib.import_module(f"pytracking_tpu_torch.parameter.{MODULES[name]}.{name}")
     built = {}
-    for attr in _NET_CONSTRUCTORS:
-        if hasattr(port, attr):
-            monkeypatch.setattr(port, attr,
-                                lambda *a, _n=attr, **k: built.setdefault("net", (_n, k)))
+    # the module and the parameter modules it builds its net through
+    # (the VOT sets build DiMP-50's with `dimp50.build_net`)
+    for mod in (port, *(v for v in vars(port).values() if isinstance(v, types.ModuleType)
+                        and v.__name__.startswith("pytracking_tpu_torch.parameter."))):
+        for attr in _NET_CONSTRUCTORS:
+            if hasattr(mod, attr):
+                monkeypatch.setattr(mod, attr,
+                                    lambda *a, _n=attr, **k: built.setdefault("net", (_n, k)))
     got = port.parameters(device="cpu", seed=3)
     ref = spec.params
     for f in dataclasses.fields(ref):

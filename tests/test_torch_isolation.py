@@ -1,4 +1,5 @@
-"""The port stands alone: pytracking_tpu_torch, chip_smoke.py and the port's
+"""The port stands alone: pytracking_tpu_torch (its evaluation harness and
+entry points included), chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
 scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py)
@@ -227,6 +228,34 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
     res = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "serving_check.py"),
                           "launches"], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "CUDA" in res.stderr
+
+
+def test_harness_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """The harness's entry points default to the card and refuse to run
+    without one: `Tracker`, `run_tracker` and `run_experiment` (also from
+    the command line), before any sequence is tracked (the harness skips a
+    sequence that raises, so a CPU fallback there would go unnoticed)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch import run_experiment, run_tracker
+    from pytracking_tpu_torch.evaluation import environment
+    from pytracking_tpu_torch.evaluation.tracker import Tracker
+
+    monkeypatch.setenv("PYTRACKING_TPU_TORCH_ROOT", str(tmp_path))
+    environment.reset_env_settings()
+    for name, param in (("dimp", "dimp50"), ("tamos", "tamos_resnet50"), ("lwl", "lwl_ytvos")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Tracker(name, param)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_tracker.run_tracker("dimp", "dimp50", dataset_name="synthetic")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_tracker.main(["dimp", "dimp50", "--dataset_name", "synthetic"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment.run_experiment("myexperiments", "dimp_synthetic")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment.main(["myexperiments", "dimp_synthetic"])
+    assert not os.listdir(tmp_path)
+    environment.reset_env_settings()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
