@@ -163,6 +163,21 @@ Phases (any failure exits non-zero and prints no result line):
               |d precision-curve AUC| <= 2.0, f32 AUC > 30), harness_pool
               (`run_dataset(threads=2)` of DiMP-18 in spawned workers against
               threads=0, each worker's peak device memory).
+ 30. train_dimp50  DiMP-50 training through `run_training("dimp", "dimp50")`
+              at full width (8 sequences x 3 + 3 frames at 288x288, 8
+              proposals, the recipe's synthetic data and per-module Adam,
+              IEEE float32; no Pallas kernel on this path: cuDNN and cuBLAS
+              forward and backward, autograd) in an empty workspace under
+              .chip_scratch/train/: epoch 1 (12 steps), then a second call
+              that resumes from ep0001.ckpt and trains epoch 2; finite
+              losses, moved parameters, both checkpoints, no fail-safe
+              restart, one host synchronisation per step, K1 not launched;
+              ms per step, sequences/s, the loader's wait, peak memory and a
+              profile of one step;
+ 31. train_gate  one train step of the seeded DiMP-50 on the card and on the
+              CPU from equal weights and one seeded batch of 4 sequences:
+              loss, gradients, running statistics and Adam's step within
+              the TRAIN_* bounds.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -1801,10 +1816,16 @@ ATOM_SHORT_FRAMES = 15                 # + SHORT_SYNC_FRAMES: the ATOM variants,
 GATE_FIRST_FRAME = 8                   # card-vs-CPU steps 8-12: the refit at frame_num 11
 ONLINE_GATE_FRAMES = 5
 ATOM_FILTER_GATE = 1e-4                # of the filter's scale, after a step without refit
-# after a refit: its 5 CG steps in float32 run close to where CG loses
-# conjugacy with these seeded weights; the card and the CPU part by 3.9e-4
-# and 2.8e-4 of scale, the CPU's own float32 refit and float64 by 2.8e-4
-# (the gate's print; NVIDIA H100 80GB HBM3, 700.00 W): 5x the larger
+# after a refit, each float32 refit (card, CPU) against the float64 refit
+# from the same state: its 5 CG steps in float32 run close to where CG loses
+# conjugacy with these seeded weights. The first figures: card vs CPU 3.9e-4
+# and 2.8e-4 of scale, the CPU's float32 refit against float64 2.8e-4 (the
+# gate's print; NVIDIA H100 80GB HBM3, 700.00 W): 5x the larger. Card vs
+# CPU reached 3.08e-3 in one run of 25 (scripts/atom_eco_check.py gate),
+# the CPU against float64 1.2e-3 and the card 5.1e-4 in 23. Against float64
+# over 22 more: the card's 5.7e-7 to 4.1e-4, the CPU's 3.6e-6 to 5.1e-3
+# (above the bound in 2 runs). The CPU's float32 refit fails this gate now
+# and then: a fault of the float32 CG on this system, left standing.
 ATOM_REFIT_GATE = 2e-3
 ECO_GATE_PX = 0.05
 ECO_SCORE_GATE = 1e-4                  # of the score maps' scale
@@ -1948,10 +1969,14 @@ def _online_gate(tag, gpu, cpu, draw_names, compare, init_report):
 
 def phase_atom_gate(spec, tag="atom_gate"):
     """ATOM card vs CPU: equal flags and replace indices, boxes within
-    DIMP_GATE_PX, the filter after each step within ATOM_FILTER_GATE of its
-    scale, ATOM_REFIT_GATE after a refit (the periodic one at frame_num 11
-    among them; beside it the CPU's float32 refit against float64). The
-    init's joint fit is reported, not gated."""
+    DIMP_GATE_PX, the filter after a step without refit within
+    ATOM_FILTER_GATE of its scale. After a refit (the periodic one at
+    frame_num 11 among them) the card's float32 filter and the CPU's are
+    each held to the float64 refit from the same state, within
+    ATOM_REFIT_GATE: the float32 CG runs near its loss of conjugacy with
+    seeded weights, and the CPU's own float32 refit is as often the one far
+    from float64 (card vs CPU is printed beside them). The init's joint fit
+    is reported, not gated."""
     from pytracking_tpu_torch.trackers.atom import FLAG_NAMES, ATOMTracker
 
     gpu = ATOMTracker(spec.params, spec.net, device="cuda")
@@ -1968,16 +1993,22 @@ def phase_atom_gate(spec, tag="atom_gate"):
         rel = _rel(cpu.state.filt, gpu.state.filt)
         n = gpu._refit_iterations(FLAG_NAMES.index(og["flag"]), gpu.state.frame_num)
         refits.append(n)
-        limit = ATOM_REFIT_GATE if n else ATOM_FILTER_GATE
+        if not n:
+            line = (f"flag {og['flag']}, box diff {px:.1e} px (<= {DIMP_GATE_PX}), no refit, "
+                    f"filter max rel diff {rel:.1e} (<= {ATOM_FILTER_GATE})")
+            check(rel <= ATOM_FILTER_GATE, f"{tag}: filters differ by {rel} of scale ({line})")
+            return line
+        st = cpu.state
+        f64 = cpu._filter_cg(before.filt.double(), st.mem_samples.double(),
+                             st.mem_y.double(), st.mem_weights.double(), n)
+        card64, cpu64 = _rel(gpu.state.filt, f64), _rel(st.filt, f64)
         line = (f"flag {og['flag']}, box diff {px:.1e} px (<= {DIMP_GATE_PX}), refit {n} CG, "
-                f"filter max rel diff {rel:.1e} (<= {limit})")
-        if n:
-            st = cpu.state
-            f64 = cpu._filter_cg(before.filt.double(), st.mem_samples.double(),
-                                 st.mem_y.double(), st.mem_weights.double(), n)
-            line += (f"; against the float64 refit: the CPU's float32 {_rel(st.filt, f64):.1e}, "
-                     f"the card's {_rel(gpu.state.filt, f64):.1e}")
-        check(rel <= limit, f"{tag}: filters differ by {rel} of scale after {n} CG ({line})")
+                f"against the float64 refit: the card's float32 {card64:.1e}, the CPU's "
+                f"{cpu64:.1e} (each <= {ATOM_REFIT_GATE}); card vs CPU {rel:.1e}")
+        check(card64 <= ATOM_REFIT_GATE,
+              f"{tag}: the card's refit is {card64} of scale from float64 after {n} CG ({line})")
+        check(cpu64 <= ATOM_REFIT_GATE,
+              f"{tag}: the CPU's refit is {cpu64} of scale from float64 after {n} CG ({line})")
         return line
 
     def init_report():
@@ -2842,6 +2873,312 @@ def phase_harness_pool(tag="harness_pool"):
     check(worst <= HARNESS_POOL_PX, f"{tag}: pooled boxes {worst} px from threads=0")
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_SAMPLES = 96                   # per epoch: 12 steps of Settings.batch_size (8)
+TRAIN_TIMED_FROM = 2                 # the median step time skips each run's first 2 steps
+# train_gate: card against CPU after one step from equal weights, both IEEE
+# float32, on 4 sequences of the recipe's pipeline (seed 0). With 2, the
+# IoU-Net's modulation is normalised over 2 samples in train mode and the
+# step is ill-conditioned: the card against itself with the images changed
+# by 3e-7 relative moves the loss by 4.8e-5 and a running variance by
+# 1.6e-3 (card vs CPU 1.9e-4 and 1.0e-3); with 4, by 9.6e-7 and 2.1e-5.
+# The measured figures (scripts/train_check.py gate 1 2 4 8; NVIDIA H100
+# 80GB HBM3, 700.00 W) are beside each bound: card vs CPU, then the card
+# against itself at 3e-7.
+TRAIN_GATE_SEQUENCES = 4
+TRAIN_LOSS_GATE = 1e-4               # the loss terms, relative: 9.3e-6; 6.3e-6
+TRAIN_STATS_GATE = 1e-4              # the running statistics, of max(1, scale): 1.0e-5; 2.1e-5
+# Gradients, of each leaf's scale. The synthetic frames' flat regions put
+# many equal activations on a ReLU kink, so float32 rounding flips them
+# together: a leaf's gradient jumps by up to 9.9e-2 on the card against
+# itself at 3e-7 (median leaf 7.8e-3), card vs CPU 5.5e-2 (median 4.5e-3).
+# The per-leaf parity at 1e-3 is held on the CPU against JAX, on textured
+# images (tests/test_torch_training.py).
+TRAIN_GRAD_GATE = 0.15               # the worst leaf
+TRAIN_GRAD_MEDIAN_GATE = 0.02        # the median leaf
+# Adam's first step is lr * sign(g) wherever |g| >> eps, so an element whose
+# gradient flips moves 2 lr apart: the share of elements whose step differs
+# by more than TRAIN_STEP_GATE of their module's lr: 0.039%; 0.072%.
+TRAIN_STEP_GATE = 1e-2
+TRAIN_STEP_SHARE_GATE = 5e-3
+
+
+def _train_workspace(tag):
+    """An empty PYTRACKING_TPU_TORCH_WORKSPACE under .chip_scratch/train/."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch", "train",
+                        tag)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["PYTRACKING_TPU_TORCH_WORKSPACE"] = root
+    return root
+
+
+def _device_rows(prof):
+    """(kernel name, device us, launches) of a profile, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_train_dimp50(tag="train_dimp50"):
+    """DiMP-50 training through `run_training("dimp", "dimp50")` at full
+    width on the recipe's synthetic data: epoch 1, then a second call that
+    resumes from ep0001.ckpt and trains epoch 2. Checks finite losses,
+    moved parameters, both checkpoints and the resume, no fail-safe
+    restart, one host synchronisation per step (the batch's upload and the
+    train step counted together; each call's first step, which meets
+    cuBLAS's and cuDNN's first use, is reported apart) and K1 not launched;
+    prints ms per step, sequences/s, the loader wait against the device's
+    time per step, the peak device memory and a profile of one more step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
+    from pytracking_tpu_torch.run_training import run_training
+    from pytracking_tpu_torch.training import trainer as trainer_mod
+
+    root = _train_workspace(tag)
+    ckpt_dir = os.path.join(root, "checkpoints", "dimp", "dimp50")
+    syncs = []                       # per step: the upload's and the step's
+    upload, make_step = trainer_mod.batch_to_device, trainer_mod.make_train_step
+
+    def counted_upload(batch, device):
+        out, warned = _count_syncs(lambda: upload(batch, device))
+        syncs.append(len(warned))
+        return out
+
+    def counted_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(batch):
+            out, warned = _count_syncs(lambda: step(batch))
+            syncs[-1] += len(warned)
+            return out
+        return counted
+
+    trainer_mod.batch_to_device, trainer_mod.make_train_step = counted_upload, counted_make_step
+    try:
+        _k1_zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = run_training("dimp", "dimp50", max_epochs=1, samples_per_epoch=TRAIN_SAMPLES,
+                             device="cuda")
+        t1 = time.perf_counter()
+        second = run_training("dimp", "dimp50", max_epochs=2, samples_per_epoch=TRAIN_SAMPLES,
+                              device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1 = _k1_path(tag)
+    finally:
+        trainer_mod.batch_to_device, trainer_mod.make_train_step = upload, make_step
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = len(second.loaders[0])
+    seeded = dict(dimpnet50(device="cuda").named_parameters())
+    moved = {n for n, p in second.net.named_parameters() if not torch.equal(p, seeded[n])}
+    reached = {n for n, p in second.net.named_parameters() if not n.startswith(
+        "feature_extractor.layer4")}
+    del seeded
+    log = first.step_log[TRAIN_TIMED_FROM:] + second.step_log[TRAIN_TIMED_FROM:]
+    step_ms = np.array([r["step_s"] for r in log]) * 1e3
+    wait_ms = np.array([r["wait_s"] for r in log]) * 1e3
+    upload_ms = np.array([r["upload_s"] for r in log]) * 1e3
+    batch_size = second.loaders[0].batch_size
+    print(f"{tag}: 2 calls, {2 * steps} steps of {batch_size} sequences x (3 train + 3 test) "
+          f"frames at 288x288, 8 proposals, loader {second.loaders[0].num_workers} threads: "
+          f"{t1 - t0:.1f} s + {t2 - t1:.1f} s (net built, epoch, checkpoint)", flush=True)
+    print(f"{tag}: losses {[round(r['loss'], 3) for r in first.step_log + second.step_log]}",
+          flush=True)
+    print(f"{tag}: step (upload to stats readback) median {np.median(step_ms):.2f} ms, p90 "
+          f"{np.percentile(step_ms, 90):.2f} ms over steps {TRAIN_TIMED_FROM + 1}+ of each call "
+          f"({len(log)} steps): {1e3 * batch_size / np.median(step_ms):.1f} sequences/s at the "
+          f"median step, {1e3 * batch_size * len(log) / (step_ms.sum() + wait_ms.sum()):.1f} "
+          f"sequences/s with the loader waits; loader wait median {np.median(wait_ms):.2f} ms, "
+          f"max {wait_ms.max():.2f} ms per step; the upload (pinning and enqueueing) median "
+          f"{np.median(upload_ms):.2f} ms; the first steps "
+          f"{first.step_log[0]['step_s'] * 1e3:.1f}, {second.step_log[0]['step_s'] * 1e3:.1f} ms",
+          flush=True)
+    print(f"{tag}: peak device memory {peak / 2 ** 30:.2f} GiB; host synchronisations per step "
+          f"{syncs}; {len(moved)} of {len(reached)} parameter tensors moved (layer4 is not run); "
+          f"restarts {first.restarts}, {second.restarts}; loaded {second.loaded_checkpoint}",
+          flush=True)
+
+    for n, (trainer, epoch) in enumerate(((first, 1), (second, 2))):
+        log = trainer.step_log
+        check([r["epoch"] for r in log] == [epoch] * steps,
+              f"{tag}: call {n + 1} trained epochs {[r['epoch'] for r in log]}")
+        check(np.isfinite([r["loss"] for r in log]).all(), f"{tag}: a loss is not finite")
+        check(trainer.restarts == 0, f"{tag}: call {n + 1} restarted {trainer.restarts} times")
+    for name in ("ep0001.ckpt", "ep0002.ckpt"):
+        check(os.path.isfile(os.path.join(ckpt_dir, name)), f"{tag}: no {name} in {ckpt_dir}")
+    check(first.loaded_checkpoint is None, f"{tag}: the first call loaded {first.loaded_checkpoint}")
+    check(second.loaded_checkpoint == os.path.join(ckpt_dir, "ep0001.ckpt"),
+          f"{tag}: the second call loaded {second.loaded_checkpoint}")
+    check(len(syncs) == 2 * steps and syncs[1:steps] == [1] * (steps - 1)
+          and syncs[steps + 1:] == [1] * (steps - 1),
+          f"{tag}: host synchronisations per step {syncs}")
+    check(moved == reached, f"{tag}: parameters not moved {sorted(reached - moved)[:5]}, moved "
+          f"outside the trained stages {sorted(moved - reached)[:5]}")
+
+    loader_iter = iter(second.loaders[0])
+    batch = trainer_mod.batch_to_device(next(loader_iter), "cuda")
+    del loader_iter
+    second._train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        second._train_step(batch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, f"{tag}: the profiler recorded no device kernel time")
+    check(not any(K1_KERNEL in r[0] for r in rows), f"{tag}: K1 launched under the profiler")
+    print(f"{tag}: profile of one step: kernels {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
+          f"wall (device busy {100 * busy / wall_us:.1f}%), {sum(r[2] for r in rows)} launches; "
+          f"loader wait median {np.median(wait_ms):.2f} ms against {busy / 1e3:.2f} ms of "
+          f"kernels per step", flush=True)
+    for key, us, count in rows[:5]:
+        print(f"{tag}:   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% x{count:<5d} {key[:100]}",
+              flush=True)
+    return k1
+
+
+def train_gate_batch(seed=0, sequences=None):
+    """`sequences` (TRAIN_GATE_SEQUENCES) sequences from the recipe's sampler
+    (DiMPProcessing over the synthetic dataset) with its generators seeded,
+    collated."""
+    from pytracking_tpu_torch.training.loader import _stack_dim1
+    from pytracking_tpu_torch.training.settings import Settings
+    from pytracking_tpu_torch.training.train_settings.dimp.dimp50 import make_sampler
+
+    n = sequences or TRAIN_GATE_SEQUENCES
+    sampler = make_sampler(Settings(), samples_per_epoch=n, seed=seed)
+    return _stack_dim1([sampler[i] for i in range(n)])
+
+
+def _train_gate_step(device, batch):
+    """One train step of the seeded DiMP-50 (train mode) on `device` with the
+    recipe's per-module Adam: the loss, stats, gradients, running
+    statistics and parameters, on the host."""
+    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
+    from pytracking_tpu_torch.parallel.mesh import read_stats
+    from pytracking_tpu_torch.training.actors.tracking import DiMPActor
+    from pytracking_tpu_torch.training.optim import adam_per_module
+    from pytracking_tpu_torch.training.train_settings.dimp.dimp50 import BASE_LR, MODULE_LRS
+    from pytracking_tpu_torch.training.trainer import batch_to_device
+    from pytracking_tpu_torch.utils.device import ieee_float32
+
+    net = dimpnet50(device=device).train()
+    optimizer, _ = adam_per_module(net, BASE_LR, MODULE_LRS, steps_per_epoch=1)
+    lrs = {id(p): g["lr"] for g in optimizer.param_groups for p in g["params"]}
+    start = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+    with ieee_float32():
+        loss, stats = DiMPActor(net)(batch_to_device(batch, device))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in net.named_parameters() if p.grad is not None}
+        optimizer.step()
+    out = {"stats": read_stats(stats, device), "grads": grads, "start": start,
+           "lr": {n: lrs.get(id(p), 0.0) for n, p in net.named_parameters()},
+           "state": {k: v.cpu() for k, v in net.state_dict().items()}}
+    del net, optimizer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_compare(got, ref):
+    """`got` against `ref` (two _train_gate_step results): {'loss': the
+    loss's relative difference, 'stats': the largest over the loss terms,
+    'acc': both accuracies, 'grad': per leaf, 'buf': per running
+    statistic, 'step': per parameter, 'step_share': the share of elements
+    whose step differs by more than TRAIN_STEP_GATE of lr} (see
+    phase_train_gate)."""
+    rel = {k: abs(got["stats"][k] - v) / max(abs(v), 1e-12) for k, v in ref["stats"].items()
+           if k.startswith("Loss/")}
+    check(set(got["grads"]) == set(ref["grads"]), "train_gate: different parameters got gradients")
+    grad, zero_grad = {}, set()
+    for n, g in ref["grads"].items():
+        block, layer, leaf = n.rsplit(".", 2)
+        if leaf == "bias" and layer in ("Conv_0", "Dense_0") \
+                and f"{block}.BatchNorm_0.running_mean" in ref["state"]:
+            # the bias before a train-mode BatchNorm: exactly 0, rounding on both sides
+            zero_grad.add(n)
+            scale = float(ref["grads"][f"{block}.{layer}.weight"].abs().max())
+            grad[n] = max(float(g.abs().max()), float(got["grads"][n].abs().max())) / scale
+        else:
+            grad[n] = float((got["grads"][n] - g).abs().max() / g.abs().max())
+    buf = {k: float((got["state"][k] - v).abs().max() / max(1.0, float(v.abs().max())))
+           for k, v in ref["state"].items() if k.endswith(("running_mean", "running_var"))}
+    step, off, total = {}, 0, 0
+    for n, g in ref["grads"].items():
+        lr = ref["lr"][n]
+        if lr == 0 or n in zero_grad:
+            continue
+        err = ((got["state"][n] - got["start"][n]) - (ref["state"][n] - ref["start"][n])).abs() / lr
+        big = g.abs() >= 0.01 * g.abs().max()
+        step[n] = float(err[big].max()) if big.any() else 0.0
+        off += int((err > TRAIN_STEP_GATE).sum())
+        total += err.numel()
+    return {"loss": rel["Loss/total"], "stats": max(rel.values()), "grad": grad, "buf": buf,
+            "step": step, "step_share": off / total, "loss_value": ref["stats"]["Loss/total"],
+            "acc": (got["stats"]["ClfTrain/test_acc"], ref["stats"]["ClfTrain/test_acc"])}
+
+
+def train_gate_figures(batch):
+    """Card against CPU after one step each from the same seeded DiMP-50 and
+    batch (_train_compare)."""
+    return _train_compare(_train_gate_step("cuda", batch), _train_gate_step("cpu", batch))
+
+
+def train_gate_sensitivity(batch, eps=3e-7):
+    """The card against itself with the images changed by a random `eps`
+    relative (float32 rounding's scale): how far rounding alone moves the
+    step (_train_compare)."""
+    g = np.random.RandomState(1)
+    moved = dict(batch)
+    for k in ("train_images", "test_images"):
+        moved[k] = (batch[k] * (1 + eps * g.randn(*batch[k].shape))).astype(np.float32)
+    return _train_compare(_train_gate_step("cuda", moved), _train_gate_step("cuda", batch))
+
+
+def phase_train_gate(tag="train_gate"):
+    """One train step of the seeded DiMP-50 on the card and on the CPU from
+    equal weights and one batch of TRAIN_GATE_SEQUENCES sequences (the
+    recipe's pipeline, seeded), both IEEE float32: the loss terms within
+    TRAIN_LOSS_GATE (relative), the running statistics within
+    TRAIN_STATS_GATE, the gradient leaves within TRAIN_GRAD_GATE of their
+    scale and their median within TRAIN_GRAD_MEDIAN_GATE (a bias before a
+    train-mode BatchNorm, whose gradient is exactly 0, against its weight's
+    gradient scale), and Adam's step off by more than TRAIN_STEP_GATE of lr
+    for at most TRAIN_STEP_SHARE_GATE of the elements."""
+    batch = train_gate_batch()
+    _k1_zero()
+    f = train_gate_figures(batch)
+    k1 = _k1_path(tag)
+    grads = sorted(f["grad"].values())
+    worst = sorted(f["grad"].items(), key=lambda kv: -kv[1])[:3]
+    buf = max(f["buf"].values())
+    print(f"{tag}: {TRAIN_GATE_SEQUENCES} sequences, loss {f['loss_value']:.5f}: card vs CPU "
+          f"loss terms {f['stats']:.2e} (<= {TRAIN_LOSS_GATE}), accuracy {f['acc']}, running "
+          f"statistics {buf:.2e} (<= {TRAIN_STATS_GATE}), gradient leaves: worst "
+          f"{grads[-1]:.2e} (<= {TRAIN_GRAD_GATE}), median {grads[len(grads) // 2]:.2e} "
+          f"(<= {TRAIN_GRAD_MEDIAN_GATE}) over {len(grads)}, the worst "
+          f"{[(n, f'{v:.1e}') for n, v in worst]}; Adam's step off by more than "
+          f"{TRAIN_STEP_GATE} of lr for {100 * f['step_share']:.4f}% of the elements "
+          f"(<= {100 * TRAIN_STEP_SHARE_GATE}%)", flush=True)
+    check(f["stats"] <= TRAIN_LOSS_GATE, f"{tag}: the loss terms differ by {f['stats']}")
+    check(buf <= TRAIN_STATS_GATE, f"{tag}: the running statistics differ by {buf}")
+    check(grads[-1] <= TRAIN_GRAD_GATE and grads[len(grads) // 2] <= TRAIN_GRAD_MEDIAN_GATE,
+          f"{tag}: gradients differ: {worst}, median {grads[len(grads) // 2]}")
+    check(f["step_share"] <= TRAIN_STEP_SHARE_GATE,
+          f"{tag}: Adam's step differs for {f['step_share']} of the elements")
+    return k1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -3026,6 +3363,10 @@ def main():
         phase_harness_bf16_gate()
         phase = "harness_pool"
         phase_harness_pool()
+        phase = "train_dimp50"
+        kernel["launches_by_path"]["train_dimp50"] = phase_train_dimp50()
+        phase = "train_gate"
+        kernel["launches_by_path"]["train_gate"] = phase_train_gate()
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

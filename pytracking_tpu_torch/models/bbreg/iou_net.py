@@ -1,6 +1,6 @@
 """ATOM IoU-Net, the modulation-based IoU predictor of DiMP's box refinement
-(counterpart of pytracking_tpu/models/bbreg/iou_net.py `AtomIoUNet`, the
-tracking-time methods).
+(counterpart of pytracking_tpu/models/bbreg/iou_net.py `AtomIoUNet`: the
+tracking-time methods and the training forward).
 
 Two backbone layers (stride 8 and 16) give the reference branch's
 modulation vectors and the test branch's IoU features; `predict_iou`
@@ -73,3 +73,16 @@ class AtomIoUNet(nn.Module):
         roi4t = prroi_pool2d(c4_t * fc34_4_r[:, :, None, None], rois, bidx, (3, 3), 1 / 16)
         fc34_rt = torch.cat([self.fc3_rt(roi3t), self.fc4_rt(roi4t)], dim=-1)
         return self.iou_predictor(fc34_rt).reshape(B, P)
+
+    def forward(self, feat1: Sequence[torch.Tensor], feat2: Sequence[torch.Tensor],
+                bb1: torch.Tensor, proposals2: torch.Tensor) -> torch.Tensor:
+        """Training forward: [layer2, layer3] features (N, S, C, H, W) of the
+        train (feat1) and test (feat2) frames, train boxes bb1 (Ntrain, S, 4)
+        and test proposals (N, S, P, 4) -> (N, S, P). The modulation comes
+        from the first train frame alone and serves every test frame."""
+        N, S, P = proposals2.shape[:3]
+        modulation = self.get_modulation([f[0] for f in feat1], bb1[0])
+        iou_feat = self.get_iou_feat([f.flatten(0, 1) for f in feat2])
+        modulation = [m.repeat(N, 1) for m in modulation]          # row n*S + s is m[s]
+        return self.predict_iou(modulation, iou_feat,
+                                proposals2.reshape(N * S, P, 4)).reshape(N, S, P)

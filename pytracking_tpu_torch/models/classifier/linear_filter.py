@@ -1,6 +1,6 @@
 """Target classification filter: feature block, initialiser and optimiser
-(counterpart of pytracking_tpu/models/classifier/linear_filter.py, the
-tracking-time methods)."""
+(counterpart of pytracking_tpu/models/classifier/linear_filter.py: the
+tracking-time methods and the training forward)."""
 
 from __future__ import annotations
 
@@ -27,10 +27,15 @@ class LinearFilter(nn.Module):
         return self.feature_extractor(feat)
 
     def get_filter(self, feat: torch.Tensor, bb: torch.Tensor, num_iter=None,
-                   sample_weight=None, **opt_kwargs) -> torch.Tensor:
+                   sample_weight=None, return_iterates: bool = False,
+                   compute_losses: bool = False, **opt_kwargs):
         """feat (N, S, C, H, W), bb (N, S, 4) -> the optimised filter
-        (S, 1, C, fs, fs). Further keyword arguments (the hinge optimiser's
-        `train_label`) go to the optimiser."""
+        (S, 1, C, fs, fs); with `return_iterates`, the optimiser's triple
+        (weights, w_iters, losses) (DiMP's steepest descent). Further
+        keyword arguments (the hinge optimiser's `train_label`) go to the
+        optimiser."""
+        if return_iterates:
+            opt_kwargs.update(return_iterates=True, compute_losses=compute_losses)
         return self.filter_optimizer(self.filter_initializer(feat, bb), feat, bb,
                                      sample_weight=sample_weight, num_iter=num_iter,
                                      **opt_kwargs)
@@ -39,3 +44,15 @@ class LinearFilter(nn.Module):
         """Scores of feat (S, C, H, W) -> (S, 1, Ho, Wo), or (N, S, C, H, W)
         -> (N, S, 1, Ho, Wo), with weights (S, 1, C, fs, fs)."""
         return apply_filter(feat, weights)
+
+    def forward(self, train_feat: torch.Tensor, test_feat: torch.Tensor,
+                train_bb: torch.Tensor, num_iter=None):
+        """Training forward: backbone features (N, S, C, H, W) of the train
+        and test frames and the train boxes (Ntrain, S, 4) -> the scores of
+        every filter iterate on the test frames (num_iters, Ntest, S, 1, H,
+        W) and the optimiser's losses."""
+        train_feat = self.extract_classification_feat(train_feat)
+        test_feat = self.extract_classification_feat(test_feat)
+        _, w_iters, losses = self.get_filter(train_feat, train_bb, num_iter=num_iter,
+                                             return_iterates=True, compute_losses=True)
+        return torch.stack([self.classify(w, test_feat) for w in w_iters]), losses

@@ -89,7 +89,15 @@ class DiMPSteepestDescentGN(nn.Module):
 
     def forward(self, weights: torch.Tensor, feat: torch.Tensor, bb: torch.Tensor,
                 sample_weight: Optional[torch.Tensor] = None,
-                num_iter: Optional[int] = None) -> torch.Tensor:
+                num_iter: Optional[int] = None, return_iterates: bool = False,
+                compute_losses: bool = False):
+        """The filter after `num_iter` steps. With `return_iterates`, the
+        triple (weights, w_iters, losses) of the training forward: w_iters
+        (num_iter, S, 1, C, fh, fw) holds the filter after each step (the
+        initial one is not among them), and losses, with `compute_losses`,
+        each step's loss before its update and the final filter's
+        (num_iter + 1 entries; empty without). Nothing in the step is
+        detached but sign(scores) in the activation's derivative."""
         num_iter = self.num_iter if num_iter is None else num_iter
         N, S = feat.shape[:2]
         fsz = (weights.shape[-2], weights.shape[-1])
@@ -104,10 +112,16 @@ class DiMPSteepestDescentGN(nn.Module):
         else:
             sample_weight = torch.sqrt(sample_weight).reshape(N, S, 1, 1, 1) * sw
 
+        def loss_of(residuals, w):
+            return (torch.sum(residuals * residuals) + reg * torch.sum(w * w)) / S
+
+        w_iters, losses = [], []
         for _ in range(num_iter):
             scores = apply_filter_per_sequence(feat, weights)             # (N, S, 1, H, W)
             score_mask = act.leaky_relu_par_deriv(scores, mask)
             residuals = sample_weight * (act.leaky_relu_par(scores, mask) - label)
+            if compute_losses:
+                losses.append(loss_of(residuals, weights))
             residuals_mapped = score_mask * (sample_weight * residuals)
             w_grad = apply_feat_transpose_per_sequence(feat, residuals_mapped, fsz) + reg * weights
 
@@ -117,7 +131,16 @@ class DiMPSteepestDescentGN(nn.Module):
                                     + reg * alpha_num, min=1e-8)
             alpha = alpha_num / alpha_den
             weights = weights - (step_length * alpha)[:, None, None, None, None] * w_grad
-        return weights
+            if return_iterates:
+                w_iters.append(weights)
+        if not return_iterates:
+            return weights
+        if compute_losses:
+            scores = apply_filter_per_sequence(feat, weights)
+            losses.append(loss_of(sample_weight * (act.leaky_relu_par(scores, mask) - label),
+                                  weights))
+        return weights, torch.stack(w_iters), \
+            torch.stack(losses) if compute_losses else weights.new_zeros(0)
 
 
 class PrDiMPSteepestDescentNewton(nn.Module):

@@ -1,7 +1,6 @@
 """Basic building blocks (counterpart of pytracking_tpu/models/layers/blocks.py:
-`ConvBlock`, `LinearBlock`, `instance_l2_norm`; plus the inference-time
-BatchNorm the JAX package gets from flax, and flax's truncated-normal
-initialiser)."""
+`ConvBlock`, `LinearBlock`, `instance_l2_norm`; plus the BatchNorm the JAX
+package gets from flax, and flax's truncated-normal initialiser)."""
 
 from __future__ import annotations
 
@@ -31,9 +30,16 @@ def instance_l2_norm(x: torch.Tensor, scale: float = 1.0, eps: float = 1e-5) -> 
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm with running statistics (tracking is inference only).
+    """flax's BatchNorm(momentum=0.9, epsilon=1e-5).
 
-    Normalises along `dim` (1 for NCHW maps, -1 for token vectors). The
+    In eval mode it normalises with the running statistics along `dim` (1
+    for NCHW maps, -1 for token vectors). In train mode (`self.training`)
+    it normalises with the batch's statistics over every other axis, in
+    float32, and moves the running ones towards them: flax's biased
+    variance E[x²] - E[x]² clipped at 0, and running = momentum * running +
+    (1 - momentum) * batch for the mean and that variance alike
+    (`nn.BatchNorm2d` would feed its running variance the unbiased one).
+    In eval mode the
     arithmetic is float32 and the result takes the input's dtype, as flax's
     BatchNorm with a compute dtype gives. With `param_dtype` bfloat16 (the
     statistics and affine parameters stored as bf16 values, as the JAX
@@ -41,6 +47,8 @@ class BatchNorm(nn.Module):
     (x - mean) * (rsqrt(var + eps) * scale) + bias, with the multiplier in
     bf16 arithmetic: a bf16 input is normalised in bf16 throughout, a
     float32 input in float32 around that bf16 multiplier."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5, dim: int = 1):
         super().__init__()
@@ -55,6 +63,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1] * x.dim()
         shape[self.dim] = -1
+        if self.training:
+            return self._batch_forward(x, shape)
         if self.param_dtype == torch.bfloat16:
             dt = torch.bfloat16
             # rsqrt in float32, rounded once, as XLA computes a bf16 rsqrt
@@ -66,6 +76,19 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         shift = self.bias - self.running_mean * mul
         return (x.float() * mul.view(shape) + shift.view(shape)).to(x.dtype)
+
+    def _batch_forward(self, x: torch.Tensor, shape) -> torch.Tensor:
+        axes = [d for d in range(x.dim()) if d != self.dim % x.dim()]
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(self.momentum * self.running_mean
+                                    + (1.0 - self.momentum) * mean)
+            self.running_var.copy_(self.momentum * self.running_var
+                                   + (1.0 - self.momentum) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 class ConvBlock(nn.Module):

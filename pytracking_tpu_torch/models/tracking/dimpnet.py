@@ -6,7 +6,9 @@ IoU-Net (counterpart of pytracking_tpu/models/tracking/dimpnet.py:
 The tracker calls the parts one by one: `extract_backbone`,
 `extract_classification_feat`, `classifier.get_filter` / `classify` /
 `filter_optimizer`, and the `bb_regressor` methods on
-`get_backbone_bbreg_feat`. Images are (B, 3, H, W) in 0-255.
+`get_backbone_bbreg_feat`. Images are (B, 3, H, W) in 0-255. `forward` is
+the training forward; the constructors return the net in eval mode, and a
+trainer calls `.train()`.
 """
 
 from __future__ import annotations
@@ -50,6 +52,29 @@ class DiMPnet(nn.Module):
     def get_backbone_bbreg_feat(self, backbone_feat: Dict[str, torch.Tensor]):
         return [backbone_feat["layer2"], backbone_feat["layer3"]]
 
+    def forward(self, train_imgs: torch.Tensor, test_imgs: torch.Tensor,
+                train_bb: torch.Tensor, test_proposals: torch.Tensor):
+        """Training forward: images (N, S, 3, H, W) in 0-255, train boxes
+        (Ntrain, S, 4), test proposals (Ntest, S, P, 4) -> the scores of
+        every filter iterate (iters, Ntest, S, 1, h, w) and the IoU
+        predictions (Ntest, S, P). The backbone runs on the train images,
+        then on the test images: in train mode each call moves the
+        BatchNorm running statistics, in that order."""
+        n_tr, S = train_imgs.shape[:2]
+        n_te = test_imgs.shape[0]
+        tr_feat = self.extract_backbone(train_imgs.flatten(0, 1))
+        te_feat = self.extract_backbone(test_imgs.flatten(0, 1))
+
+        def to_ns(f, n):
+            return f.reshape((n, S) + f.shape[1:])
+
+        target_scores, _ = self.classifier(to_ns(tr_feat["layer3"], n_tr),
+                                           to_ns(te_feat["layer3"], n_te), train_bb)
+        iou_pred = self.bb_regressor([to_ns(tr_feat[k], n_tr) for k in ("layer2", "layer3")],
+                                     [to_ns(te_feat[k], n_te) for k in ("layer2", "layer3")],
+                                     train_bb, test_proposals)
+        return target_scores, iou_pred
+
 
 @torch.no_grad()
 def init_weights(net: DiMPnet, generator: torch.Generator) -> DiMPnet:
@@ -78,10 +103,12 @@ FILTER_SIZE = 4
 
 
 def _dimpnet(backbone: nn.Module, clf_fe: nn.Module, optimizer: nn.Module, out_dim: int,
-             iou_input_dim, generator: Optional[torch.Generator], device) -> DiMPnet:
-    """A DiMPnet with a 4x4 filter, seeded weights, on `device`."""
+             iou_input_dim, generator: Optional[torch.Generator], device,
+             filter_size: int = FILTER_SIZE) -> DiMPnet:
+    """A DiMPnet with a `filter_size` filter (4x4), seeded weights, on
+    `device`, in eval mode."""
     device = resolve_device(device)
-    classifier = LinearFilter(FilterInitializerLinear(filter_size=FILTER_SIZE,
+    classifier = LinearFilter(FilterInitializerLinear(filter_size=filter_size,
                                                       feature_dim=out_dim),
                               optimizer, clf_fe)
     net = DiMPnet(backbone, classifier,
@@ -91,16 +118,18 @@ def _dimpnet(backbone: nn.Module, clf_fe: nn.Module, optimizer: nn.Module, out_d
     return net.to(device).eval()
 
 
-def _norm_scale(out_dim: int) -> float:
-    return math.sqrt(1.0 / (out_dim * FILTER_SIZE * FILTER_SIZE))
+def _norm_scale(out_dim: int, filter_size: int = FILTER_SIZE) -> float:
+    return math.sqrt(1.0 / (out_dim * filter_size * filter_size))
 
 
-def _dimp_gn():
+def _dimp_gn(optim_iter: int = 5, init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
+             bin_displacement: float = 0.1, mask_init_factor: float = 3.0):
     """DiMP's optimiser: 5 iterations, step 0.9, regulariser 0.1, 100
     distance bins of 0.1 cell."""
-    return DiMPSteepestDescentGN(num_iter=5, feat_stride=16, init_step_length=0.9,
-                                 init_filter_reg=0.1, init_gauss_sigma=0.9, num_dist_bins=100,
-                                 bin_displacement=0.1, mask_init_factor=3.0)
+    return DiMPSteepestDescentGN(num_iter=optim_iter, feat_stride=16, init_step_length=0.9,
+                                 init_filter_reg=0.1, init_gauss_sigma=init_gauss_sigma,
+                                 num_dist_bins=num_dist_bins, bin_displacement=bin_displacement,
+                                 mask_init_factor=mask_init_factor)
 
 
 def _prdimp_newton():
@@ -111,8 +140,9 @@ def _prdimp_newton():
                                        gauss_sigma=0.9, alpha_eps=0.05, normalize_label=True)
 
 
-def _r50_features():
-    return ResidualBottleneck(in_dim=1024, out_dim=512, norm_scale=_norm_scale(512))
+def _r50_features(filter_size: int = FILTER_SIZE):
+    return ResidualBottleneck(in_dim=1024, out_dim=512,
+                              norm_scale=_norm_scale(512, filter_size))
 
 
 def _r18_features():
@@ -121,16 +151,21 @@ def _r18_features():
 
 
 def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda",
-              backbone_dtype: Optional[torch.dtype] = None) -> DiMPnet:
+              backbone_dtype: Optional[torch.dtype] = None, filter_size: int = FILTER_SIZE,
+              optim_iter: int = 5, init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
+              bin_displacement: float = 0.1, mask_init_factor: float = 3.0) -> DiMPnet:
     """DiMP-50 on `device`, weights drawn from `generator` (seed 0 when
     none is given): ResNet-50 layer2/layer3 (its convolutions computing in
     `backbone_dtype` when given, its outputs float32), a 3x3 conv
     1024 -> 512 with InstanceL2Norm as the classification feature, a 4x4
     filter and its optimiser (5 iterations by default, step 0.9,
     regulariser 0.1, 100 distance bins of 0.1 cell), IoU-Net on (512, 1024)
-    channels with 256-wide heads."""
-    return _dimpnet(backbones.resnet50(dtype=backbone_dtype), _r50_features(), _dimp_gn(), 512,
-                    (512, 1024), generator, device)
+    channels with 256-wide heads. The keywords after `backbone_dtype` are
+    the training recipe's, and their defaults its values."""
+    return _dimpnet(backbones.resnet50(dtype=backbone_dtype), _r50_features(filter_size),
+                    _dimp_gn(optim_iter, init_gauss_sigma, num_dist_bins, bin_displacement,
+                             mask_init_factor),
+                    512, (512, 1024), generator, device, filter_size)
 
 
 def dimpnet18(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:

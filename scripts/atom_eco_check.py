@@ -23,8 +23,8 @@ frames after the ones chip_smoke.py's phase tracks.
 gate: chip_smoke.py's `atom_gate` (card against CPU, each step from the
 card's state) `runs` times (3) in one process, each with new trackers of
 the same seeded net, its failed checks printed instead of raised: how far
-the card's run-to-run variation moves the refit's card-vs-CPU difference
-and the CPU's own float32-vs-float64 one.
+the card's run-to-run variation moves each side's float32 refit from the
+float64 one (the refit's bound) and the card-vs-CPU difference.
 """
 
 import dataclasses

@@ -2,8 +2,8 @@
 entry points included), chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
-scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py)
-import no JAX, no
+scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py,
+scripts/train_check.py) import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
@@ -21,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
 PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py", "kys_check.py",
-                "keep_track_check.py", "lwl_check.py", "atom_eco_check.py", "serving_check.py")
+                "keep_track_check.py", "lwl_check.py", "atom_eco_check.py", "serving_check.py",
+                "train_check.py")
 
 
 def _port_sources():
@@ -256,6 +257,27 @@ def test_harness_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         run_experiment.main(["myexperiments", "dimp_synthetic"])
     assert not os.listdir(tmp_path)
     environment.reset_env_settings()
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """`run_training` (also from the command line) and the DiMP-50 recipe
+    default to the card and refuse to run without one, before they write
+    anything to the workspace."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch import run_training
+    from pytracking_tpu_torch.training.settings import Settings
+    from pytracking_tpu_torch.training.train_settings.dimp import dimp50
+
+    monkeypatch.setenv("PYTRACKING_TPU_TORCH_WORKSPACE", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training.run_training("dimp", "dimp50", max_epochs=1, samples_per_epoch=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training.main(["dimp", "dimp50", "--max_epochs", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dimp50.run(Settings(), max_epochs=1, samples_per_epoch=8, net=torch.nn.Linear(1, 1))
+    assert Settings().workspace_dir == str(tmp_path)
+    assert not os.listdir(tmp_path)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
