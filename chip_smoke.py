@@ -178,6 +178,25 @@ Phases (any failure exits non-zero and prints no result line):
               CPU from equal weights and one seeded batch of 4 sequences:
               loss, gradients, running statistics and Adam's step within
               the TRAIN_* bounds.
+ 32. train_prdimp50  PrDiMP-50 training through
+              `run_training("dimp", "prdimp50")` at full width (8 sequences
+              x 3 + 3 frames at 288x288, 128 mixture proposals per test
+              frame, the KL objective on the IoU-Net and on every Newton
+              iterate), one epoch of 12 steps: finite losses, every
+              parameter moved, the checkpoint, no restart, one host
+              synchronisation per step after the first, K1 not launched;
+              ms per step, sequences/s, the loader's wait, the upload, peak
+              memory and a profile of one step;
+ 33. train_atom  ATOM's IoU-Net training through
+              `run_training("bbreg", "atom")` (ResNet-18 frozen, its
+              BatchNorm in train mode), as train_prdimp50, and the backbone's
+              weights bit for bit unchanged, its running statistics moved;
+ 34. train_recipes  dimp18, prdimp18, super_dimp, super_dimp_simple,
+              atom_paper, atom_prob_ml, atom_gmm_sampl through
+              `run_training`, 3 steps each at full width: the same checks;
+              ms per step and peak memory;
+ 35. train_prdimp_gate, train_atom_gate  `train_gate` for PrDiMP-50 and
+              ATOM (4 sequences each, the TRAIN_* bounds).
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -1824,8 +1843,11 @@ ATOM_FILTER_GATE = 1e-4                # of the filter's scale, after a step wit
 # CPU reached 3.08e-3 in one run of 25 (scripts/atom_eco_check.py gate),
 # the CPU against float64 1.2e-3 and the card 5.1e-4 in 23. Against float64
 # over 22 more: the card's 5.7e-7 to 4.1e-4, the CPU's 3.6e-6 to 5.1e-3
-# (above the bound in 2 runs). The CPU's float32 refit fails this gate now
-# and then: a fault of the float32 CG on this system, left standing.
+# (above the bound in 2 runs). Only the card's refit is gated: the CPU's
+# float32 CG is the same algorithm as the JAX package's, 1.3e-2 from
+# float64 on its own trajectory, and says nothing about the card; the
+# port's float32 refit is held to the JAX package's in
+# tests/test_torch_atom.py. The CPU's figure is printed.
 ATOM_REFIT_GATE = 2e-3
 ECO_GATE_PX = 0.05
 ECO_SCORE_GATE = 1e-4                  # of the score maps' scale
@@ -1971,12 +1993,15 @@ def phase_atom_gate(spec, tag="atom_gate"):
     """ATOM card vs CPU: equal flags and replace indices, boxes within
     DIMP_GATE_PX, the filter after a step without refit within
     ATOM_FILTER_GATE of its scale. After a refit (the periodic one at
-    frame_num 11 among them) the card's float32 filter and the CPU's are
-    each held to the float64 refit from the same state, within
-    ATOM_REFIT_GATE: the float32 CG runs near its loss of conjugacy with
-    seeded weights, and the CPU's own float32 refit is as often the one far
-    from float64 (card vs CPU is printed beside them). The init's joint fit
-    is reported, not gated."""
+    frame_num 11 among them) the card's float32 filter is held to the
+    float64 refit from the same state, within ATOM_REFIT_GATE: the float32
+    CG runs near its loss of conjugacy with seeded weights, so card vs CPU
+    is no measure there. The CPU's float32 refit against float64 and card
+    vs CPU are printed beside it, not gated: the CPU's float32 CG is the
+    algorithm the JAX package runs, it exceeds the bound now and then on
+    its own (ATOM_REFIT_GATE's note), and tests/test_torch_atom.py holds
+    the port's refit to the JAX package's. The init's joint fit is
+    reported, not gated."""
     from pytracking_tpu_torch.trackers.atom import FLAG_NAMES, ATOMTracker
 
     gpu = ATOMTracker(spec.params, spec.net, device="cuda")
@@ -2003,12 +2028,10 @@ def phase_atom_gate(spec, tag="atom_gate"):
                              st.mem_y.double(), st.mem_weights.double(), n)
         card64, cpu64 = _rel(gpu.state.filt, f64), _rel(st.filt, f64)
         line = (f"flag {og['flag']}, box diff {px:.1e} px (<= {DIMP_GATE_PX}), refit {n} CG, "
-                f"against the float64 refit: the card's float32 {card64:.1e}, the CPU's "
-                f"{cpu64:.1e} (each <= {ATOM_REFIT_GATE}); card vs CPU {rel:.1e}")
+                f"against the float64 refit: the card's float32 {card64:.1e} (<= "
+                f"{ATOM_REFIT_GATE}), the CPU's {cpu64:.1e} (reported); card vs CPU {rel:.1e}")
         check(card64 <= ATOM_REFIT_GATE,
               f"{tag}: the card's refit is {card64} of scale from float64 after {n} CG ({line})")
-        check(cpu64 <= ATOM_REFIT_GATE,
-              f"{tag}: the CPU's refit is {cpu64} of scale from float64 after {n} CG ({line})")
         return line
 
     def init_report():
@@ -2902,6 +2925,19 @@ TRAIN_GRAD_MEDIAN_GATE = 0.02        # the median leaf
 # by more than TRAIN_STEP_GATE of their module's lr: 0.039%; 0.072%.
 TRAIN_STEP_GATE = 1e-2
 TRAIN_STEP_SHARE_GATE = 5e-3
+TRAIN_GATE_BOUNDS = {"loss": TRAIN_LOSS_GATE, "stats": TRAIN_STATS_GATE, "grad": TRAIN_GRAD_GATE,
+                     "grad_median": TRAIN_GRAD_MEDIAN_GATE, "step_share": TRAIN_STEP_SHARE_GATE}
+# train_atom_gate: ATOM's step (the IoU-Net on the frozen ResNet-18, whose
+# BatchNorm trains) is far better conditioned than DiMP-50's, so the bounds
+# above would let a card-only fault of a few percent in the IoU-Net's
+# backward or in Adam pass. Its own, each about ten times the card against
+# itself at 3e-7, from the figures (scripts/train_check.py gate bbreg atom;
+# NVIDIA H100 80GB HBM3, 700.00 W), card vs CPU then card vs itself: loss
+# terms 3.15e-6; 4.50e-6, running statistics 3.41e-6; 6.58e-6, gradient
+# leaves worst 5.98e-5; 8.98e-4 and median 2.01e-5; 4.10e-5, Adam's step
+# share 0.0047%; 0.0061%.
+TRAIN_ATOM_GATE_BOUNDS = {"loss": 5e-5, "stats": 5e-5, "grad": 1e-2, "grad_median": 1e-3,
+                          "step_share": 5e-4}
 
 
 def _train_workspace(tag):
@@ -2925,25 +2961,13 @@ def _device_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def phase_train_dimp50(tag="train_dimp50"):
-    """DiMP-50 training through `run_training("dimp", "dimp50")` at full
-    width on the recipe's synthetic data: epoch 1, then a second call that
-    resumes from ep0001.ckpt and trains epoch 2. Checks finite losses,
-    moved parameters, both checkpoints and the resume, no fail-safe
-    restart, one host synchronisation per step (the batch's upload and the
-    train step counted together; each call's first step, which meets
-    cuBLAS's and cuDNN's first use, is reported apart) and K1 not launched;
-    prints ms per step, sequences/s, the loader wait against the device's
-    time per step, the peak device memory and a profile of one more step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
-    from pytracking_tpu_torch.run_training import run_training
+@contextlib.contextmanager
+def _counted_train_syncs(syncs):
+    """The host synchronisations of each train step of every trainer made
+    inside, appended to `syncs`: the batch's upload and the step counted
+    together."""
     from pytracking_tpu_torch.training import trainer as trainer_mod
 
-    root = _train_workspace(tag)
-    ckpt_dir = os.path.join(root, "checkpoints", "dimp", "dimp50")
-    syncs = []                       # per step: the upload's and the step's
     upload, make_step = trainer_mod.batch_to_device, trainer_mod.make_train_step
 
     def counted_upload(batch, device):
@@ -2962,6 +2986,56 @@ def phase_train_dimp50(tag="train_dimp50"):
 
     trainer_mod.batch_to_device, trainer_mod.make_train_step = counted_upload, counted_make_step
     try:
+        yield syncs
+    finally:
+        trainer_mod.batch_to_device, trainer_mod.make_train_step = upload, make_step
+
+
+def _profile_train_step(tag, trainer):
+    """One more train step on a batch of the trainer's loader under the
+    profiler (after an unprofiled one on the same batch): kernel ms, wall
+    ms, the busy share, launches and the top kernels; K1 counted by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytracking_tpu_torch.training import trainer as trainer_mod
+
+    loader_iter = iter(trainer.loaders[0])
+    batch = trainer_mod.batch_to_device(next(loader_iter), "cuda")
+    del loader_iter
+    trainer._train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_step(batch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, f"{tag}: the profiler recorded no device kernel time")
+    check(not any(K1_KERNEL in r[0] for r in rows), f"{tag}: K1 launched under the profiler")
+    print(f"{tag}: profile of one step: kernels {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
+          f"wall (device busy {100 * busy / wall_us:.1f}%), {sum(r[2] for r in rows)} launches, "
+          f"{K1_KERNEL}* 0", flush=True)
+    for key, us, count in rows[:5]:
+        print(f"{tag}:   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% x{count:<5d} {key[:100]}",
+              flush=True)
+
+
+def phase_train_dimp50(tag="train_dimp50"):
+    """DiMP-50 training through `run_training("dimp", "dimp50")` at full
+    width on the recipe's synthetic data: epoch 1, then a second call that
+    resumes from ep0001.ckpt and trains epoch 2. Checks finite losses,
+    moved parameters, both checkpoints and the resume, no fail-safe
+    restart, one host synchronisation per step (the batch's upload and the
+    train step counted together; each call's first step, which meets
+    cuBLAS's and cuDNN's first use, is reported apart) and K1 not launched;
+    prints ms per step, sequences/s, the loader wait against the device's
+    time per step, the peak device memory and a profile of one more step."""
+    from pytracking_tpu_torch.run_training import run_training
+
+    root = _train_workspace(tag)
+    ckpt_dir = os.path.join(root, "checkpoints", "dimp", "dimp50")
+    syncs = []                       # per step: the upload's and the step's
+    with _counted_train_syncs(syncs):
         _k1_zero()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2974,39 +3048,17 @@ def phase_train_dimp50(tag="train_dimp50"):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         k1 = _k1_path(tag)
-    finally:
-        trainer_mod.batch_to_device, trainer_mod.make_train_step = upload, make_step
     peak = torch.cuda.max_memory_allocated()
 
     steps = len(second.loaders[0])
-    seeded = dict(dimpnet50(device="cuda").named_parameters())
-    moved = {n for n, p in second.net.named_parameters() if not torch.equal(p, seeded[n])}
-    reached = {n for n, p in second.net.named_parameters() if not n.startswith(
-        "feature_extractor.layer4")}
-    del seeded
-    log = first.step_log[TRAIN_TIMED_FROM:] + second.step_log[TRAIN_TIMED_FROM:]
-    step_ms = np.array([r["step_s"] for r in log]) * 1e3
-    wait_ms = np.array([r["wait_s"] for r in log]) * 1e3
-    upload_ms = np.array([r["upload_s"] for r in log]) * 1e3
-    batch_size = second.loaders[0].batch_size
-    print(f"{tag}: 2 calls, {2 * steps} steps of {batch_size} sequences x (3 train + 3 test) "
-          f"frames at 288x288, 8 proposals, loader {second.loaders[0].num_workers} threads: "
-          f"{t1 - t0:.1f} s + {t2 - t1:.1f} s (net built, epoch, checkpoint)", flush=True)
-    print(f"{tag}: losses {[round(r['loss'], 3) for r in first.step_log + second.step_log]}",
-          flush=True)
-    print(f"{tag}: step (upload to stats readback) median {np.median(step_ms):.2f} ms, p90 "
-          f"{np.percentile(step_ms, 90):.2f} ms over steps {TRAIN_TIMED_FROM + 1}+ of each call "
-          f"({len(log)} steps): {1e3 * batch_size / np.median(step_ms):.1f} sequences/s at the "
-          f"median step, {1e3 * batch_size * len(log) / (step_ms.sum() + wait_ms.sum()):.1f} "
-          f"sequences/s with the loader waits; loader wait median {np.median(wait_ms):.2f} ms, "
-          f"max {wait_ms.max():.2f} ms per step; the upload (pinning and enqueueing) median "
-          f"{np.median(upload_ms):.2f} ms; the first steps "
-          f"{first.step_log[0]['step_s'] * 1e3:.1f}, {second.step_log[0]['step_s'] * 1e3:.1f} ms",
-          flush=True)
-    print(f"{tag}: peak device memory {peak / 2 ** 30:.2f} GiB; host synchronisations per step "
-          f"{syncs}; {len(moved)} of {len(reached)} parameter tensors moved (layer4 is not run); "
-          f"restarts {first.restarts}, {second.restarts}; loaded {second.loaded_checkpoint}",
-          flush=True)
+    print(f"{tag}: 2 calls, {2 * steps} steps of {second.loaders[0].batch_size} sequences x "
+          f"(3 train + 3 test) frames at 288x288, 8 proposals, loader "
+          f"{second.loaders[0].num_workers} threads: {t1 - t0:.1f} s + {t2 - t1:.1f} s (net "
+          f"built, epoch, checkpoint)", flush=True)
+    print(f"{tag}: losses {[round(r['loss'], 3) for r in first.step_log + second.step_log]}; "
+          f"host synchronisations per step {syncs}; restarts {first.restarts}, "
+          f"{second.restarts}; loaded {second.loaded_checkpoint}", flush=True)
+    _step_report(tag, (first, second), peak)
 
     for n, (trainer, epoch) in enumerate(((first, 1), (second, 2))):
         log = trainer.step_log
@@ -3022,63 +3074,48 @@ def phase_train_dimp50(tag="train_dimp50"):
     check(len(syncs) == 2 * steps and syncs[1:steps] == [1] * (steps - 1)
           and syncs[steps + 1:] == [1] * (steps - 1),
           f"{tag}: host synchronisations per step {syncs}")
-    check(moved == reached, f"{tag}: parameters not moved {sorted(reached - moved)[:5]}, moved "
-          f"outside the trained stages {sorted(moved - reached)[:5]}")
-
-    loader_iter = iter(second.loaders[0])
-    batch = trainer_mod.batch_to_device(next(loader_iter), "cuda")
-    del loader_iter
-    second._train_step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        second._train_step(batch)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_rows(prof)
-    busy = sum(r[1] for r in rows)
-    check(busy > 0, f"{tag}: the profiler recorded no device kernel time")
-    check(not any(K1_KERNEL in r[0] for r in rows), f"{tag}: K1 launched under the profiler")
-    print(f"{tag}: profile of one step: kernels {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
-          f"wall (device busy {100 * busy / wall_us:.1f}%), {sum(r[2] for r in rows)} launches; "
-          f"loader wait median {np.median(wait_ms):.2f} ms against {busy / 1e3:.2f} ms of "
-          f"kernels per step", flush=True)
-    for key, us, count in rows[:5]:
-        print(f"{tag}:   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% x{count:<5d} {key[:100]}",
-              flush=True)
+    _moved_parameters(tag, second, "dimp", "dimp50")
+    _profile_train_step(tag, second)
     return k1
 
 
-def train_gate_batch(seed=0, sequences=None):
+def _recipe(module, name):
+    """A training recipe of the port: train_settings/<module>/<name>.py."""
+    return importlib.import_module(
+        f"pytracking_tpu_torch.training.train_settings.{module}.{name}")
+
+
+def train_gate_batch(seed=0, sequences=None, recipe=("dimp", "dimp50")):
     """`sequences` (TRAIN_GATE_SEQUENCES) sequences from the recipe's sampler
-    (DiMPProcessing over the synthetic dataset) with its generators seeded,
-    collated."""
+    (DiMP-50's: DiMPProcessing over the synthetic dataset) with its
+    generators seeded, collated."""
     from pytracking_tpu_torch.training.loader import _stack_dim1
     from pytracking_tpu_torch.training.settings import Settings
-    from pytracking_tpu_torch.training.train_settings.dimp.dimp50 import make_sampler
 
     n = sequences or TRAIN_GATE_SEQUENCES
-    sampler = make_sampler(Settings(), samples_per_epoch=n, seed=seed)
+    sampler = _recipe(*recipe).make_sampler(Settings(), samples_per_epoch=n, seed=seed)
     return _stack_dim1([sampler[i] for i in range(n)])
 
 
-def _train_gate_step(device, batch):
-    """One train step of the seeded DiMP-50 (train mode) on `device` with the
-    recipe's per-module Adam: the loss, stats, gradients, running
-    statistics and parameters, on the host."""
-    from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
+def _train_gate_step(device, batch, recipe=("dimp", "dimp50")):
+    """One train step of the recipe's seeded net (DiMP-50's; train mode) on
+    `device` with the recipe's actor and per-module Adam: the loss, stats,
+    gradients, running statistics and parameters, on the host."""
     from pytracking_tpu_torch.parallel.mesh import read_stats
-    from pytracking_tpu_torch.training.actors.tracking import DiMPActor
     from pytracking_tpu_torch.training.optim import adam_per_module
-    from pytracking_tpu_torch.training.train_settings.dimp.dimp50 import BASE_LR, MODULE_LRS
+    from pytracking_tpu_torch.training.settings import Settings
     from pytracking_tpu_torch.training.trainer import batch_to_device
     from pytracking_tpu_torch.utils.device import ieee_float32
 
-    net = dimpnet50(device=device).train()
-    optimizer, _ = adam_per_module(net, BASE_LR, MODULE_LRS, steps_per_epoch=1)
+    mod, settings = _recipe(*recipe), Settings()
+    net = mod.make_net(settings, device).train()
+    actor = mod.make_actor(settings)
+    optimizer, _ = adam_per_module(net, mod.BASE_LR, mod.MODULE_LRS, steps_per_epoch=1,
+                                   freeze_unlisted=mod.FREEZE_UNLISTED)
     lrs = {id(p): g["lr"] for g in optimizer.param_groups for p in g["params"]}
     start = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
     with ieee_float32():
-        loss, stats = DiMPActor(net)(batch_to_device(batch, device))
+        loss, stats = actor(net)(batch_to_device(batch, device))
         loss.backward()
         grads = {n: p.grad.cpu() for n, p in net.named_parameters() if p.grad is not None}
         optimizer.step()
@@ -3125,16 +3162,17 @@ def _train_compare(got, ref):
         total += err.numel()
     return {"loss": rel["Loss/total"], "stats": max(rel.values()), "grad": grad, "buf": buf,
             "step": step, "step_share": off / total, "loss_value": ref["stats"]["Loss/total"],
-            "acc": (got["stats"]["ClfTrain/test_acc"], ref["stats"]["ClfTrain/test_acc"])}
+            "acc": tuple(x["stats"].get("ClfTrain/test_acc") for x in (got, ref))}
 
 
-def train_gate_figures(batch):
-    """Card against CPU after one step each from the same seeded DiMP-50 and
-    batch (_train_compare)."""
-    return _train_compare(_train_gate_step("cuda", batch), _train_gate_step("cpu", batch))
+def train_gate_figures(batch, recipe=("dimp", "dimp50")):
+    """Card against CPU after one step each from the same seeded net (the
+    recipe's: DiMP-50's) and batch (_train_compare)."""
+    return _train_compare(_train_gate_step("cuda", batch, recipe),
+                          _train_gate_step("cpu", batch, recipe))
 
 
-def train_gate_sensitivity(batch, eps=3e-7):
+def train_gate_sensitivity(batch, eps=3e-7, recipe=("dimp", "dimp50")):
     """The card against itself with the images changed by a random `eps`
     relative (float32 rounding's scale): how far rounding alone moves the
     step (_train_compare)."""
@@ -3142,40 +3180,192 @@ def train_gate_sensitivity(batch, eps=3e-7):
     moved = dict(batch)
     for k in ("train_images", "test_images"):
         moved[k] = (batch[k] * (1 + eps * g.randn(*batch[k].shape))).astype(np.float32)
-    return _train_compare(_train_gate_step("cuda", moved), _train_gate_step("cuda", batch))
+    return _train_compare(_train_gate_step("cuda", moved, recipe),
+                          _train_gate_step("cuda", batch, recipe))
 
 
-def phase_train_gate(tag="train_gate"):
-    """One train step of the seeded DiMP-50 on the card and on the CPU from
-    equal weights and one batch of TRAIN_GATE_SEQUENCES sequences (the
-    recipe's pipeline, seeded), both IEEE float32: the loss terms within
-    TRAIN_LOSS_GATE (relative), the running statistics within
-    TRAIN_STATS_GATE, the gradient leaves within TRAIN_GRAD_GATE of their
-    scale and their median within TRAIN_GRAD_MEDIAN_GATE (a bias before a
-    train-mode BatchNorm, whose gradient is exactly 0, against its weight's
-    gradient scale), and Adam's step off by more than TRAIN_STEP_GATE of lr
-    for at most TRAIN_STEP_SHARE_GATE of the elements."""
-    batch = train_gate_batch()
+def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_GATE_BOUNDS):
+    """One train step of the recipe's seeded net (DiMP-50's) on the card and
+    on the CPU from equal weights and one batch of TRAIN_GATE_SEQUENCES
+    sequences (the recipe's pipeline, seeded), both IEEE float32, within
+    `bounds` (TRAIN_GATE_BOUNDS): the loss terms within 'loss' (relative),
+    the running statistics within 'stats', the gradient leaves within
+    'grad' of their scale and their median within 'grad_median' (a bias
+    before a train-mode BatchNorm, whose gradient is exactly 0, against its
+    weight's gradient scale), and Adam's step off by more than
+    TRAIN_STEP_GATE of lr for at most 'step_share' of the elements."""
+    b, n = bounds, TRAIN_GATE_SEQUENCES
+    batch = train_gate_batch(recipe=recipe)
     _k1_zero()
-    f = train_gate_figures(batch)
+    f = train_gate_figures(batch, recipe)
     k1 = _k1_path(tag)
     grads = sorted(f["grad"].values())
     worst = sorted(f["grad"].items(), key=lambda kv: -kv[1])[:3]
     buf = max(f["buf"].values())
-    print(f"{tag}: {TRAIN_GATE_SEQUENCES} sequences, loss {f['loss_value']:.5f}: card vs CPU "
-          f"loss terms {f['stats']:.2e} (<= {TRAIN_LOSS_GATE}), accuracy {f['acc']}, running "
-          f"statistics {buf:.2e} (<= {TRAIN_STATS_GATE}), gradient leaves: worst "
-          f"{grads[-1]:.2e} (<= {TRAIN_GRAD_GATE}), median {grads[len(grads) // 2]:.2e} "
-          f"(<= {TRAIN_GRAD_MEDIAN_GATE}) over {len(grads)}, the worst "
+    print(f"{tag}: {n} sequences, loss {f['loss_value']:.5f}: card vs CPU "
+          f"loss terms {f['stats']:.2e} (<= {b['loss']}), accuracy {f['acc']}, running "
+          f"statistics {buf:.2e} (<= {b['stats']}), gradient leaves: worst "
+          f"{grads[-1]:.2e} (<= {b['grad']}), median {grads[len(grads) // 2]:.2e} "
+          f"(<= {b['grad_median']}) over {len(grads)}, the worst "
           f"{[(n, f'{v:.1e}') for n, v in worst]}; Adam's step off by more than "
           f"{TRAIN_STEP_GATE} of lr for {100 * f['step_share']:.4f}% of the elements "
-          f"(<= {100 * TRAIN_STEP_SHARE_GATE}%)", flush=True)
-    check(f["stats"] <= TRAIN_LOSS_GATE, f"{tag}: the loss terms differ by {f['stats']}")
-    check(buf <= TRAIN_STATS_GATE, f"{tag}: the running statistics differ by {buf}")
-    check(grads[-1] <= TRAIN_GRAD_GATE and grads[len(grads) // 2] <= TRAIN_GRAD_MEDIAN_GATE,
+          f"(<= {100 * b['step_share']}%)", flush=True)
+    check(f["stats"] <= b["loss"], f"{tag}: the loss terms differ by {f['stats']}")
+    check(buf <= b["stats"], f"{tag}: the running statistics differ by {buf}")
+    check(grads[-1] <= b["grad"] and grads[len(grads) // 2] <= b["grad_median"],
           f"{tag}: gradients differ: {worst}, median {grads[len(grads) // 2]}")
-    check(f["step_share"] <= TRAIN_STEP_SHARE_GATE,
+    check(f["step_share"] <= b["step_share"],
           f"{tag}: Adam's step differs for {f['step_share']} of the elements")
+    return k1
+
+
+# ------------------------------------------ training: the DiMP family and ATOM
+
+TRAIN_RECIPE_STEPS = 3               # steps of each recipe in train_recipes
+TRAIN_RECIPES = (("dimp", "dimp18"), ("dimp", "prdimp18"), ("dimp", "super_dimp"),
+                 ("dimp", "super_dimp_simple"), ("bbreg", "atom_paper"),
+                 ("bbreg", "atom_prob_ml"), ("bbreg", "atom_gmm_sampl"))
+
+
+def _train_recipe_run(tag, module, name, samples):
+    """One `run_training(module, name)` call at full width on the recipe's
+    synthetic data in an empty workspace, `samples` sequences: checks one
+    epoch of finite losses, its checkpoint, no fail-safe restart, one host
+    synchronisation per step after the first and K1 not launched. Returns
+    (trainer, seconds, peak device memory, K1's launches)."""
+    from pytracking_tpu_torch.run_training import run_training
+
+    root = _train_workspace(tag)
+    syncs = []
+    with _counted_train_syncs(syncs):
+        _k1_zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = run_training(module, name, max_epochs=1, samples_per_epoch=samples,
+                               device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1 = _k1_path(tag)
+    peak = torch.cuda.max_memory_allocated()
+    log, steps = trainer.step_log, len(trainer.loaders[0])
+    ckpt = os.path.join(root, "checkpoints", module, name, "ep0001.ckpt")
+    check([r["epoch"] for r in log] == [1] * steps, f"{tag}: epochs {[r['epoch'] for r in log]}")
+    check(np.isfinite([r["loss"] for r in log]).all(), f"{tag}: a loss is not finite")
+    check(trainer.restarts == 0, f"{tag}: restarted {trainer.restarts} times")
+    check(os.path.isfile(ckpt), f"{tag}: no {ckpt}")
+    check(len(syncs) == steps and syncs[1:] == [1] * (steps - 1),
+          f"{tag}: host synchronisations per step {syncs}")
+    print(f"{tag}: {steps} steps of {trainer.loaders[0].batch_size} sequences in {seconds:.1f} s "
+          f"(net built, epoch, checkpoint); losses {[round(r['loss'], 4) for r in log]}; "
+          f"host synchronisations per step {syncs}", flush=True)
+    return trainer, seconds, peak, k1
+
+
+def _moved_parameters(tag, trainer, module, name):
+    """Every parameter the recipe trains (requires_grad; ResNet's layer4,
+    which DiMP's nets never run, left out) moved from the recipe's seeded
+    net, and no other; returns the seeded net's state_dict."""
+    seeded = _recipe(module, name).make_net(trainer.settings, "cuda").state_dict()
+    params = dict(trainer.net.named_parameters())
+    moved = {n for n, p in params.items() if not torch.equal(p, seeded[n])}
+    trained = {n for n, p in params.items()
+               if p.requires_grad and not n.startswith("feature_extractor.layer4")}
+    check(moved == trained, f"{tag}: not moved {sorted(trained - moved)[:5]}, moved and not "
+          f"trained {sorted(moved - trained)[:5]}")
+    print(f"{tag}: {len(moved)} of {len(params)} parameter tensors moved, the {len(trained)} "
+          f"trained", flush=True)
+    return seeded
+
+
+def _step_report(tag, trainers, peak, first=TRAIN_TIMED_FROM):
+    """ms per step (upload to stats readback) from step `first` + 1 on of
+    each of the `trainers`' calls, its sequences/s, the loader's wait and
+    the upload; returns the median."""
+    log = [r for t in trainers for r in t.step_log[first:]]
+    step_ms = np.array([r["step_s"] for r in log]) * 1e3
+    wait_ms = np.array([r["wait_s"] for r in log]) * 1e3
+    upload_ms = np.array([r["upload_s"] for r in log]) * 1e3
+    bs = trainers[0].loaders[0].batch_size
+    firsts = ", ".join(f"{t.step_log[0]['step_s'] * 1e3:.1f}" for t in trainers)
+    print(f"{tag}: step median {np.median(step_ms):.2f} ms, p90 {np.percentile(step_ms, 90):.2f} "
+          f"ms over steps {first + 1}+ of each call ({len(log)}): "
+          f"{1e3 * bs / np.median(step_ms):.1f} sequences/s at the median step, "
+          f"{1e3 * bs * len(log) / (step_ms.sum() + wait_ms.sum()):.1f} with the loader's waits; "
+          f"loader wait median {np.median(wait_ms):.2f} ms (max {wait_ms.max():.2f}); upload "
+          f"median {np.median(upload_ms):.2f} ms; first step {firsts} ms; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    return float(np.median(step_ms))
+
+
+def phase_train_prdimp50(tag="train_prdimp50"):
+    """PrDiMP-50 training through `run_training("dimp", "prdimp50")` at full
+    width (8 sequences x 3 + 3 frames at 288x288, 128 mixture proposals per
+    test frame with their densities, the KL objective on the IoU-Net and on
+    every iterate of the Newton filter optimiser, per-module Adam, IEEE
+    float32; no Pallas kernel on this path) on the recipe's synthetic data:
+    one epoch of TRAIN_SAMPLES sequences; the checks of _train_recipe_run,
+    every parameter moved; ms per step, sequences/s, the loader's wait, the
+    upload, peak memory and a profile of one step."""
+    trainer, _, peak, k1 = _train_recipe_run(tag, "dimp", "prdimp50", TRAIN_SAMPLES)
+    _moved_parameters(tag, trainer, "dimp", "prdimp50")
+    _step_report(tag, (trainer,), peak)
+    _profile_train_step(tag, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_train_atom(tag="train_atom"):
+    """ATOM's IoU-Net training through `run_training("bbreg", "atom")` at full
+    width (8 sequences x 1 + 1 frames at 288x288, 16 proposals per test
+    frame, ResNet-18 frozen with its BatchNorm in train mode, Adam on the
+    IoU-Net alone): one epoch of TRAIN_SAMPLES sequences; the checks of
+    _train_recipe_run, every IoU-Net parameter moved, every backbone weight
+    bit for bit the seeded one, the backbone's BatchNorm running statistics
+    moved (layer4's, not run, unchanged); the figures of train_prdimp50."""
+    trainer, _, peak, k1 = _train_recipe_run(tag, "bbreg", "atom", TRAIN_SAMPLES)
+    seeded = _moved_parameters(tag, trainer, "bbreg", "atom")
+    state = trainer.net.state_dict()
+    frozen = [k for k in state if k.startswith("feature_extractor.")
+              and not k.endswith(("running_mean", "running_var"))]
+    stats = [k for k in state if k.startswith("feature_extractor.")
+             and k.endswith(("running_mean", "running_var"))]
+    check(all(torch.equal(state[k], seeded[k]) for k in frozen),
+          f"{tag}: backbone weights changed: "
+          f"{[k for k in frozen if not torch.equal(state[k], seeded[k])][:5]}")
+    moved = {k for k in stats if not torch.equal(state[k], seeded[k])}
+    expected = {k for k in stats if not k.startswith("feature_extractor.layer4")}
+    check(moved == expected, f"{tag}: running statistics not moved "
+          f"{sorted(expected - moved)[:5]}, moved {sorted(moved - expected)[:5]}")
+    print(f"{tag}: {len(frozen)} backbone weight tensors bit for bit the seeded ones; "
+          f"{len(moved)} of {len(stats)} running statistics moved (layer4 not run)", flush=True)
+    _step_report(tag, (trainer,), peak)
+    _profile_train_step(tag, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_train_recipes(tag="train_recipes"):
+    """The other recipes of the DiMP family and ATOM through `run_training`
+    at full width, TRAIN_RECIPE_STEPS steps each: DiMP-18 (DiMP-50's recipe
+    on ResNet-18), PrDiMP-18, SuperDiMP and SuperDiMP-simple (PrDiMP's
+    objective at 352x352; DiMP's Gauss-Newton and the generic one by
+    torch.func), ATOM at the paper's operating point, ATOM prob-ML and its
+    GMM-sampling twin (the KL objective on 128 mixture proposals): the
+    checks of _train_recipe_run and every trained parameter moved; ms per
+    step after the first and peak memory. Returns K1's launches over them."""
+    k1 = 0
+    for module, name in TRAIN_RECIPES:
+        sub = f"{tag}/{name}"
+        trainer, seconds, peak, n = _train_recipe_run(
+            sub, module, name, TRAIN_RECIPE_STEPS * 8)
+        k1 += n
+        _moved_parameters(sub, trainer, module, name)
+        _step_report(sub, (trainer,), peak, first=1)
+        del trainer
+        torch.cuda.empty_cache()
     return k1
 
 
@@ -3367,6 +3557,18 @@ def main():
         kernel["launches_by_path"]["train_dimp50"] = phase_train_dimp50()
         phase = "train_gate"
         kernel["launches_by_path"]["train_gate"] = phase_train_gate()
+        phase = "train_prdimp50"
+        kernel["launches_by_path"]["train_prdimp50"] = phase_train_prdimp50()
+        phase = "train_atom"
+        kernel["launches_by_path"]["train_atom"] = phase_train_atom()
+        phase = "train_recipes"
+        kernel["launches_by_path"]["train_recipes"] = phase_train_recipes()
+        phase = "train_prdimp_gate"
+        kernel["launches_by_path"]["train_prdimp_gate"] = phase_train_gate(
+            phase, ("dimp", "prdimp50"))
+        phase = "train_atom_gate"
+        kernel["launches_by_path"]["train_atom_gate"] = phase_train_gate(
+            phase, ("bbreg", "atom"), TRAIN_ATOM_GATE_BOUNDS)
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

@@ -195,7 +195,12 @@ class PrDiMPSteepestDescentNewton(nn.Module):
 
     def forward(self, weights: torch.Tensor, feat: torch.Tensor, bb: torch.Tensor,
                 sample_weight: Optional[torch.Tensor] = None,
-                num_iter: Optional[int] = None) -> torch.Tensor:
+                num_iter: Optional[int] = None, return_iterates: bool = False,
+                compute_losses: bool = False):
+        """The filter after `num_iter` steps; with `return_iterates` the
+        triple (weights, w_iters, losses) as DiMPSteepestDescentGN's: the
+        filter after each step, and with `compute_losses` each step's KL
+        loss before its update and the final filter's."""
         num_iter = self.num_iter if num_iter is None else num_iter
         N, S = feat.shape[:2]
         fsz = (weights.shape[-2], weights.shape[-1])
@@ -212,9 +217,18 @@ class PrDiMPSteepestDescentNewton(nn.Module):
         else:
             sample_weight = sample_weight.reshape(N, S, 1, 1, 1)
         sw_ns = sample_weight.reshape(N, S)
+        exp_reg = 0.0 if self.softmax_reg is None else math.exp(self.softmax_reg)
 
+        def loss_of(scores, w):
+            lse = torch.log(torch.exp(scores).sum(dim=(-3, -2, -1)) + exp_reg)   # (N, S)
+            xent = (label * scores).sum(dim=(-3, -2, -1))
+            return torch.sum(sw_ns * (lse - xent)) / S + reg * torch.sum(w * w) / S
+
+        w_iters, losses = [], []
         for _ in range(num_iter):
             scores = apply_filter_per_sequence(feat, weights)             # (N, S, 1, H, W)
+            if compute_losses:
+                losses.append(loss_of(scores, weights))
             sm = act.softmax_reg(scores.reshape(N, S, -1), dim=2,
                                  reg=self.softmax_reg).reshape(scores.shape)
             res = sample_weight * (sm - label)
@@ -230,4 +244,11 @@ class PrDiMPSteepestDescentNewton(nn.Module):
             alpha_den = torch.clamp(ghg + (reg + self.alpha_eps) * alpha_num, min=1e-8)
             alpha = alpha_num / alpha_den
             weights = weights - (step_length * alpha)[:, None, None, None, None] * w_grad
-        return weights
+            if return_iterates:
+                w_iters.append(weights)
+        if not return_iterates:
+            return weights
+        if compute_losses:
+            losses.append(loss_of(apply_filter_per_sequence(feat, weights), weights))
+        return weights, torch.stack(w_iters), \
+            torch.stack(losses) if compute_losses else weights.new_zeros(0)

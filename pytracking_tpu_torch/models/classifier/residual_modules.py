@@ -53,7 +53,11 @@ class GNSteepestDescentDiMP(nn.Module):
 
     def forward(self, weights: torch.Tensor, feat: torch.Tensor, bb: torch.Tensor,
                 sample_weight: Optional[torch.Tensor] = None,
-                num_iter: Optional[int] = None) -> torch.Tensor:
+                num_iter: Optional[int] = None, return_iterates: bool = False,
+                compute_losses: bool = False):
+        """The filter after `num_iter` steps; with `return_iterates` the
+        triple (weights, w_iters, losses) of `gn_steepest_descent`, which
+        the training forward differentiates through."""
         num_iter = self.num_iter if num_iter is None else num_iter
         N, S = feat.shape[:2]
         out_sz = (feat.shape[-2] + (weights.shape[-2] + 1) % 2,
@@ -76,7 +80,9 @@ class GNSteepestDescentDiMP(nn.Module):
                                         self.act_param)
             return {"data": sample_weight * (scores - label), "reg": reg * w.reshape(1, S, -1)}
 
-        return gn_steepest_descent(residual, weights, num_iter, residual_batch_dim=1)
+        return gn_steepest_descent(residual, weights, num_iter, residual_batch_dim=1,
+                                   return_iterates=return_iterates,
+                                   compute_losses=compute_losses)
 
 
 class GNSteepestDescentHinge(nn.Module):

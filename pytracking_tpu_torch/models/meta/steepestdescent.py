@@ -33,19 +33,42 @@ def _batch_sqr_norm(tree: Any, batch_dim: int, num_batch: int) -> torch.Tensor:
 
 def gn_steepest_descent(residual_fn: Callable[[torch.Tensor], Any], x0: torch.Tensor,
                         num_iter: int, residual_batch_dim: int = 1,
-                        steplength_reg: float = 0.0) -> torch.Tensor:
+                        steplength_reg: float = 0.0, return_iterates: bool = False,
+                        compute_losses: bool = False):
     """Run `num_iter` steps on x (dim 0 = the sequences). `residual_fn`
     returns a pytree of tensors whose `residual_batch_dim` is the sequence
-    axis. Returns the final x."""
+    axis. Returns the final x; with `return_iterates` the triple (x,
+    iterates (num_iter, *x.shape), losses): the losses, with
+    `compute_losses`, are the mean squared residual before each step and
+    after the last (num_iter + 1 entries; empty without).
+
+    Nothing is detached: under autograd the result is differentiable in x0
+    and in every tensor `residual_fn` closes over, through the unrolled
+    steps, as the training forward needs."""
     S = x0.shape[0]
     x = x0
     shape = (-1,) + (1,) * (x0.dim() - 1)
+
+    def loss_of(r):
+        leaves = tree_leaves(r)
+        total = sum(torch.sum(leaf * leaf) for leaf in leaves)
+        return total / sum(leaf.numel() for leaf in leaves)
+
+    iterates, losses = [], []
     for _ in range(num_iter):
         r, vjp_fn = torch.func.vjp(residual_fn, x)
+        if compute_losses:
+            losses.append(loss_of(r))
         g, = vjp_fn(r)
         _, h = torch.func.jvp(residual_fn, (x,), (g,))
         ip_gg = _batch_sqr_norm(g, 0, S)
         ip_hh = _batch_sqr_norm(h, residual_batch_dim, S)
         alpha = ip_gg / torch.clamp(ip_hh + steplength_reg * ip_gg, min=1e-8)
         x = x - alpha.reshape(shape) * g
-    return x
+        if return_iterates:
+            iterates.append(x)
+    if not return_iterates:
+        return x
+    if compute_losses:
+        losses.append(loss_of(residual_fn(x)))
+    return x, torch.stack(iterates), torch.stack(losses) if compute_losses else x.new_zeros(0)

@@ -5,7 +5,8 @@ pytracking_tpu/models/tracking/atomnet.py: `ATOMnet`, `atom_resnet18`,
 
 The tracker calls `extract_backbone` and the IoU-Net's methods on
 `get_backbone_bbreg_feat`; the online classifier reads layer3. Images are
-(B, 3, H, W) in 0-255.
+(B, 3, H, W) in 0-255. `forward` is the training forward (IoU predictions
+only).
 """
 
 from __future__ import annotations
@@ -34,6 +35,22 @@ class ATOMnet(nn.Module):
 
     def get_backbone_bbreg_feat(self, backbone_feat: Dict[str, torch.Tensor]):
         return [backbone_feat["layer2"], backbone_feat["layer3"]]
+
+    def forward(self, train_imgs: torch.Tensor, test_imgs: torch.Tensor,
+                train_bb: torch.Tensor, test_proposals: torch.Tensor) -> torch.Tensor:
+        """Training forward: images (N, S, 3, H, W) in 0-255, train boxes
+        (Ntrain, S, 4), test proposals (Ntest, S, P, 4) -> the IoU
+        predictions (Ntest, S, P). The backbone runs on the train images,
+        then on the test images (in train mode each call moves the
+        BatchNorm running statistics, in that order)."""
+        n_tr, S = train_imgs.shape[:2]
+        n_te = test_imgs.shape[0]
+        tr_feat = self.extract_backbone(train_imgs.flatten(0, 1))
+        te_feat = self.extract_backbone(test_imgs.flatten(0, 1))
+        return self.bb_regressor(
+            [tr_feat[k].reshape((n_tr, S) + tr_feat[k].shape[1:]) for k in ("layer2", "layer3")],
+            [te_feat[k].reshape((n_te, S) + te_feat[k].shape[1:]) for k in ("layer2", "layer3")],
+            train_bb, test_proposals)
 
 
 def _atomnet(backbone: nn.Module, input_dim, iou_input_dim, iou_inter_dim,

@@ -122,22 +122,29 @@ def _norm_scale(out_dim: int, filter_size: int = FILTER_SIZE) -> float:
     return math.sqrt(1.0 / (out_dim * filter_size * filter_size))
 
 
-def _dimp_gn(optim_iter: int = 5, init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
-             bin_displacement: float = 0.1, mask_init_factor: float = 3.0):
+def _dimp_gn(optim_iter: int = 5, optim_init_step: float = 0.9, optim_init_reg: float = 0.1,
+             init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
+             bin_displacement: float = 0.1, mask_init_factor: float = 3.0,
+             score_act: str = "relu"):
     """DiMP's optimiser: 5 iterations, step 0.9, regulariser 0.1, 100
-    distance bins of 0.1 cell."""
-    return DiMPSteepestDescentGN(num_iter=optim_iter, feat_stride=16, init_step_length=0.9,
-                                 init_filter_reg=0.1, init_gauss_sigma=init_gauss_sigma,
+    distance bins of 0.1 cell, the parametric leaky ReLU on the scores
+    (score_act 'relu', the one the port implements)."""
+    if score_act != "relu":
+        raise ValueError(f"score_act {score_act!r}: the port implements 'relu' only")
+    return DiMPSteepestDescentGN(num_iter=optim_iter, feat_stride=16,
+                                 init_step_length=optim_init_step,
+                                 init_filter_reg=optim_init_reg, init_gauss_sigma=init_gauss_sigma,
                                  num_dist_bins=num_dist_bins, bin_displacement=bin_displacement,
                                  mask_init_factor=mask_init_factor)
 
 
-def _prdimp_newton():
+def _prdimp_newton(optim_iter: int = 5, gauss_sigma: float = 0.9):
     """PrDiMP's optimiser: 5 iterations, step 1, regulariser 0.05 (also the
     least), label sigma 0.9 cells normalised, alpha_eps 0.05."""
-    return PrDiMPSteepestDescentNewton(num_iter=5, feat_stride=16, init_step_length=1.0,
-                                       init_filter_reg=0.05, min_filter_reg=0.05,
-                                       gauss_sigma=0.9, alpha_eps=0.05, normalize_label=True)
+    return PrDiMPSteepestDescentNewton(num_iter=optim_iter, feat_stride=16,
+                                       init_step_length=1.0, init_filter_reg=0.05,
+                                       min_filter_reg=0.05, gauss_sigma=gauss_sigma,
+                                       alpha_eps=0.05, normalize_label=True)
 
 
 def _r50_features(filter_size: int = FILTER_SIZE):
@@ -145,15 +152,17 @@ def _r50_features(filter_size: int = FILTER_SIZE):
                               norm_scale=_norm_scale(512, filter_size))
 
 
-def _r18_features():
-    return ResidualBasicBlock(in_dim=256, out_dim=256, norm_scale=_norm_scale(256),
+def _r18_features(filter_size: int = FILTER_SIZE):
+    return ResidualBasicBlock(in_dim=256, out_dim=256, norm_scale=_norm_scale(256, filter_size),
                               feature_dim=256, num_blocks=1, final_conv=True)
 
 
 def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda",
               backbone_dtype: Optional[torch.dtype] = None, filter_size: int = FILTER_SIZE,
-              optim_iter: int = 5, init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
-              bin_displacement: float = 0.1, mask_init_factor: float = 3.0) -> DiMPnet:
+              optim_iter: int = 5, optim_init_step: float = 0.9, optim_init_reg: float = 0.1,
+              init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
+              bin_displacement: float = 0.1, mask_init_factor: float = 3.0,
+              score_act: str = "relu") -> DiMPnet:
     """DiMP-50 on `device`, weights drawn from `generator` (seed 0 when
     none is given): ResNet-50 layer2/layer3 (its convolutions computing in
     `backbone_dtype` when given, its outputs float32), a 3x3 conv
@@ -161,42 +170,57 @@ def dimpnet50(generator: Optional[torch.Generator] = None, device="cuda",
     filter and its optimiser (5 iterations by default, step 0.9,
     regulariser 0.1, 100 distance bins of 0.1 cell), IoU-Net on (512, 1024)
     channels with 256-wide heads. The keywords after `backbone_dtype` are
-    the training recipe's, and their defaults its values."""
+    the training recipes', and their defaults DiMP-50's values; a
+    `score_act` other than 'relu' raises ValueError."""
     return _dimpnet(backbones.resnet50(dtype=backbone_dtype), _r50_features(filter_size),
-                    _dimp_gn(optim_iter, init_gauss_sigma, num_dist_bins, bin_displacement,
-                             mask_init_factor),
+                    _dimp_gn(optim_iter, optim_init_step, optim_init_reg, init_gauss_sigma,
+                             num_dist_bins, bin_displacement, mask_init_factor, score_act),
                     512, (512, 1024), generator, device, filter_size)
 
 
-def dimpnet18(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+def dimpnet18(generator: Optional[torch.Generator] = None, device="cuda",
+              filter_size: int = FILTER_SIZE, optim_iter: int = 5,
+              init_gauss_sigma: float = 0.9, num_dist_bins: int = 100,
+              bin_displacement: float = 0.1, mask_init_factor: float = 3.0) -> DiMPnet:
     """DiMP-18: ResNet-18 layer2/layer3, one BasicBlock 256 -> 256 and a 3x3
     conv 256 -> 256 with InstanceL2Norm, DiMP's optimiser, IoU-Net on
-    (128, 256) channels."""
-    return _dimpnet(backbones.resnet18(), _r18_features(), _dimp_gn(), 256, (128, 256),
-                    generator, device)
+    (128, 256) channels. The keywords are the training recipe's."""
+    return _dimpnet(backbones.resnet18(), _r18_features(filter_size),
+                    _dimp_gn(optim_iter, init_gauss_sigma=init_gauss_sigma,
+                             num_dist_bins=num_dist_bins, bin_displacement=bin_displacement,
+                             mask_init_factor=mask_init_factor),
+                    256, (128, 256), generator, device, filter_size)
 
 
-def klcedimpnet50(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+def klcedimpnet50(generator: Optional[torch.Generator] = None, device="cuda",
+                  filter_size: int = FILTER_SIZE, optim_iter: int = 5,
+                  gauss_sigma: float = 0.9) -> DiMPnet:
     """PrDiMP-50: DiMP-50's backbone, feature and IoU-Net with the KL/Newton
-    optimiser."""
-    return _dimpnet(backbones.resnet50(), _r50_features(), _prdimp_newton(), 512, (512, 1024),
-                    generator, device)
+    optimiser (its label density's sigma `gauss_sigma` cells)."""
+    return _dimpnet(backbones.resnet50(), _r50_features(filter_size),
+                    _prdimp_newton(optim_iter, gauss_sigma), 512, (512, 1024), generator,
+                    device, filter_size)
 
 
-def klcedimpnet18(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+def klcedimpnet18(generator: Optional[torch.Generator] = None, device="cuda",
+                  filter_size: int = FILTER_SIZE, optim_iter: int = 5,
+                  gauss_sigma: float = 0.9) -> DiMPnet:
     """PrDiMP-18: DiMP-18's backbone, feature and IoU-Net with the KL/Newton
     optimiser."""
-    return _dimpnet(backbones.resnet18(), _r18_features(), _prdimp_newton(), 256, (128, 256),
-                    generator, device)
+    return _dimpnet(backbones.resnet18(), _r18_features(filter_size),
+                    _prdimp_newton(optim_iter, gauss_sigma), 256, (128, 256), generator,
+                    device, filter_size)
 
 
-def dimpnet50_simple(generator: Optional[torch.Generator] = None, device="cuda") -> DiMPnet:
+def dimpnet50_simple(generator: Optional[torch.Generator] = None, device="cuda",
+                     filter_size: int = FILTER_SIZE, optim_iter: int = 5,
+                     init_gauss_sigma: float = 0.9) -> DiMPnet:
     """DiMP-50-simple: DiMP-50's net with the generic Gauss-Newton optimiser
     over DiMP's learned residual (5 iterations, regulariser 0.05, the
     bent-identity score activation with parameter 0.05)."""
-    optimizer = GNSteepestDescentDiMP(num_iter=5, feat_stride=16, init_filter_reg=0.05,
-                                      init_gauss_sigma=0.9, num_dist_bins=100,
+    optimizer = GNSteepestDescentDiMP(num_iter=optim_iter, feat_stride=16, init_filter_reg=0.05,
+                                      init_gauss_sigma=init_gauss_sigma, num_dist_bins=100,
                                       bin_displacement=0.1, mask_init_factor=3.0,
                                       act_param=0.05)
-    return _dimpnet(backbones.resnet50(), _r50_features(), optimizer, 512, (512, 1024),
-                    generator, device)
+    return _dimpnet(backbones.resnet50(), _r50_features(filter_size), optimizer, 512,
+                    (512, 1024), generator, device, filter_size)

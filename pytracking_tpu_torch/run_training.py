@@ -1,8 +1,12 @@
 """Command line: run a training recipe of the port (counterpart of
 pytracking_tpu/run_training.py).
 
-    python -m pytracking_tpu_torch.run_training dimp dimp50 [--max_epochs N]
+    python -m pytracking_tpu_torch.run_training <module> <name> [--max_epochs N]
         [--device cuda]
+
+The recipes: dimp {dimp50, dimp18, prdimp50, prdimp18, super_dimp,
+super_dimp_simple} and bbreg {atom, atom_paper, atom_prob_ml,
+atom_gmm_sampl} (training/train_settings/<module>/<name>.py).
 
 Checkpoints go to <workspace>/checkpoints/<module>/<name>/epNNNN.ckpt
 (training/settings.py), and a rerun resumes from the latest. The device

@@ -65,15 +65,20 @@ def adam_per_module(net: torch.nn.Module, base_lr: float, module_lrs: Dict[str, 
     """(optimizer, scheduler): Adam (AdamW with weight_decay) over the
     net's parameters, a group per entry of module_lrs ({'classifier.
     filter_optimizer': 5e-4, 'feature_extractor': 2e-5, ...}) and the rest at
-    base_lr, or left out of the optimiser (never updated) with
-    freeze_unlisted; every group decays on the same schedule."""
+    base_lr, or with freeze_unlisted left out of the optimiser (never
+    updated) and out of autograd (requires_grad off: the backward computes
+    no gradient that nothing would read); every group decays on the same
+    schedule."""
     groups: Dict[Optional[str], list] = {p: [] for p in module_lrs}
     groups[None] = []
     for name, param in net.named_parameters():
         groups[module_label(name, list(module_lrs))].append(param)
     param_groups = [{"params": groups[p], "lr": lr} for p, lr in module_lrs.items()
                     if groups[p]]
-    if not freeze_unlisted and groups[None]:
+    if freeze_unlisted:
+        for param in groups[None]:
+            param.requires_grad_(False)
+    elif groups[None]:
         param_groups.append({"params": groups[None], "lr": base_lr})
     if weight_decay is not None:
         optimizer = torch.optim.AdamW(param_groups, lr=base_lr, weight_decay=weight_decay)

@@ -1,6 +1,7 @@
 """Per-sample processing of the training data pipeline: jitter, crop,
 resize, labels and proposals (counterpart of
-pytracking_tpu/training/processing.py `BaseProcessing`, `DiMPProcessing`).
+pytracking_tpu/training/processing.py `BaseProcessing`, `DiMPProcessing`,
+`ATOMProcessing`, `KLDiMPProcessing`).
 Host-side numpy; the result is a dict of fixed-shape float32 arrays. The
 random draws come from the generators the sampler passes in.
 """
@@ -64,12 +65,9 @@ class DiMPProcessing(BaseProcessing):
             target_bb, p["sigma_factor"], p["kernel_sz"], p["feature_sz"], self.output_sz,
             end_pad_if_even=p.get("end_pad_if_even", True))
 
-    def __call__(self, data: dict, rng: random.Random,
-                 np_rng: np.random.RandomState) -> dict:
-        """data {'train_images', 'train_anno', 'test_images', 'test_anno'}
-        (lists over frames) -> the crops, the boxes in crop coordinates,
-        and with the parameters given 'test_proposals', 'proposal_iou',
-        'train_label' and 'test_label'."""
+    def _crops(self, data: dict, rng: random.Random, np_rng: np.random.RandomState) -> dict:
+        """The joint transform, then per frame the jittered crop, the box in
+        crop coordinates and the split's transform."""
         if self.transform["joint"] is not None:
             data["train_images"], data["train_anno"] = self.transform["joint"](
                 image=data["train_images"], bbox=data["train_anno"], rng=rng, np_rng=np_rng)
@@ -87,7 +85,15 @@ class DiMPProcessing(BaseProcessing):
                                              np_rng=np_rng)
             data[s + "_images"] = [np.asarray(c, np.float32) for c in crops]
             data[s + "_anno"] = [np.asarray(b, np.float32) for b in boxes]
+        return data
 
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        """data {'train_images', 'train_anno', 'test_images', 'test_anno'}
+        (lists over frames) -> the crops, the boxes in crop coordinates,
+        and with the parameters given 'test_proposals', 'proposal_iou',
+        'train_label' and 'test_label'."""
+        data = self._crops(data, rng, np_rng)
         if self.proposal_params:
             p = self.proposal_params
             proposals, gt_iou = zip(*[prutils.gaussian_proposals(
@@ -101,4 +107,66 @@ class DiMPProcessing(BaseProcessing):
                                    for a in data["train_anno"]]
             data["test_label"] = [self._generate_label_function(a[None])[0]
                                   for a in data["test_anno"]]
+        return data
+
+
+class ATOMProcessing(DiMPProcessing):
+    """ATOM's processing: DiMP's, given no label parameters (proposals
+    only)."""
+
+
+class KLDiMPProcessing(DiMPProcessing):
+    """PrDiMP's processing: DiMP's crops, then per test frame proposals
+    drawn from a Gaussian mixture around the box (in the centre / log-size
+    parametrisation relative to the box's size) with the mixture's density
+    at each draw ('proposal_density') and the ground-truth density
+    ('gt_density': 1 for proposal 0, the box itself, 0 elsewhere); with the
+    label parameters the test frames' label densities ('test_label_density')
+    and the train frames' Gaussian labels ('train_label')."""
+
+    def _generate_proposals(self, box: np.ndarray, np_rng: np.random.RandomState):
+        """(proposals (P, 4), densities (P,), gt_density (P,)). Each
+        proposal draws its mixture component, and each but proposal 0 its
+        offset, from np_rng in that order."""
+        p = self.proposal_params
+        num = p["boxes_per_frame"]
+        sigmas = p.get("proposal_sigma", [(0.05, 0.05), (0.5, 0.5)])
+        stds = [np.array([s[0], s[0], s[1], s[1]]) for s in sigmas]
+
+        box = np.asarray(box, np.float64)
+        proposals = np.zeros((num, 4), np.float32)
+        densities = np.zeros((num,), np.float32)
+        sz_norm = box[2:]
+        center_rel = np.concatenate([(box[:2] + box[2:] / 2) / sz_norm,
+                                     np.log(np.maximum(box[2:], 1e-6))])
+        for i in range(num):
+            std = stds[np_rng.randint(len(sigmas))]
+            d = np.zeros(4) if i == 0 else np_rng.randn(4) * std
+            rel = center_rel + d
+            wh = np.exp(rel[2:])
+            proposals[i] = np.concatenate([rel[:2] * sz_norm - wh / 2, wh])
+            densities[i] = np.mean([np.prod(np.exp(-0.5 * (d / sg) ** 2)
+                                            / (np.sqrt(2 * np.pi) * sg)) for sg in stds])
+        gt_density = np.zeros((num,), np.float32)
+        gt_density[0] = 1.0
+        return proposals, densities, gt_density
+
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        data = self._crops(data, rng, np_rng)
+        if self.proposal_params:
+            out = [self._generate_proposals(a, np_rng) for a in data["test_anno"]]
+            data["test_proposals"] = [o[0] for o in out]
+            data["proposal_density"] = [o[1] for o in out]
+            data["gt_density"] = [o[2] for o in out]
+
+        if self.label_function_params is not None:
+            p = self.label_function_params
+            data["test_label_density"] = [
+                prutils.gaussian_label_function(a[None], p["sigma_factor"], p["kernel_sz"],
+                                                p["feature_sz"], self.output_sz,
+                                                density=True)[0]
+                for a in data["test_anno"]]
+            data["train_label"] = [self._generate_label_function(a[None])[0]
+                                   for a in data["train_anno"]]
         return data

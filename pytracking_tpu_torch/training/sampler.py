@@ -1,7 +1,7 @@
 """Training sample sampler: dataset -> sequence -> train and test frames
 (counterpart of pytracking_tpu/training/sampler.py `TrackingSampler`,
-`DiMPSampler`): causal or interval frame sampling within max_gap under the
-visibility constraints.
+`DiMPSampler`, `ATOMSampler`): causal or interval frame sampling within
+max_gap under the visibility constraints.
 
 The sampler owns its random generators, a `random.Random` and a
 `np.random.RandomState` (`seed()` reseeds both), and passes them to the
@@ -139,3 +139,14 @@ class TrackingSampler:
 
 class DiMPSampler(TrackingSampler):
     """DiMP's sampler: the tracking sampler with its defaults."""
+
+
+class ATOMSampler(TrackingSampler):
+    """ATOM's sampler: one train and one test frame, sampled within max_gap
+    of each other around a visible base frame ('interval')."""
+
+    def __init__(self, datasets, p_datasets=None, samples_per_epoch=1000, max_gap=30,
+                 processing=None, frame_sample_mode="interval", seed: Optional[int] = None):
+        super().__init__(datasets, p_datasets, samples_per_epoch, max_gap,
+                         num_test_frames=1, num_train_frames=1, processing=processing,
+                         frame_sample_mode=frame_sample_mode, seed=seed)

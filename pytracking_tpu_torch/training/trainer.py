@@ -5,7 +5,8 @@ stats (counterpart of pytracking_tpu/training/trainer.py `AverageMeter`,
 The hot loop takes a frame-major numpy batch from the loader, uploads it
 from pinned memory without blocking (images NHWC -> NCHW on the device)
 and runs one train step (parallel/mesh.make_train_step), whose stats
-readback is the step's one host synchronisation. A checkpoint is
+readback is the step's one host synchronisation; `train_recipe` is the
+run every recipe makes of it. A checkpoint is
 `torch.save` of {'net', 'optimizer', 'scheduler', 'epoch'}, written to
 `epNNNN.ckpt.tmp` and renamed with `os.replace`; it is loaded only with
 `torch.load(weights_only=True)`.
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 
 from pytracking_tpu_torch.parallel.mesh import make_train_step, read_stats
+from pytracking_tpu_torch.training.loader import LTRLoader
+from pytracking_tpu_torch.training.optim import adam_per_module
 from pytracking_tpu_torch.utils.device import ieee_float32
 
 IMAGE_KEYS = ("train_images", "test_images")
@@ -216,6 +219,27 @@ class LTRTrainer(BaseTrainer):
                     m.reset()
                 self.cycle_dataset(loader)
         self._write_epoch_stats()
+
+
+def train_recipe(settings, sampler, net, actor, base_lr: float, module_lrs: Dict[str, float],
+                 max_epochs: int, device, freeze_unlisted: bool = False) -> "LTRTrainer":
+    """A recipe's training run: `net` on `device`, `actor(net)` on batches of
+    settings.batch_size from `sampler` (settings.num_workers loader
+    threads), Adam per module (training/optim.adam_per_module, decayed by 0.2
+    every 15 epochs), and an LTRTrainer that resumes from the latest
+    checkpoint under settings.checkpoint_dir and restarts after a failure.
+    Returns the trainer after max_epochs."""
+    loader = LTRLoader("train", sampler, training=True, batch_size=settings.batch_size,
+                       num_workers=settings.num_workers)
+    net = net.to(device)
+    optimizer, scheduler = adam_per_module(net, base_lr, module_lrs,
+                                           steps_per_epoch=len(loader), step_size=15,
+                                           gamma=0.2, freeze_unlisted=freeze_unlisted)
+    trainer = LTRTrainer(actor(net), [loader], optimizer, settings, settings.checkpoint_dir,
+                         scheduler=scheduler, device=device,
+                         print_interval=settings.print_interval)
+    trainer.train(max_epochs, load_latest=True, fail_safe=True)
+    return trainer
 
 
 class _JsonlWriter:

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Checks of the port's DiMP-50 training on the card (chip_smoke.py's
-training phases).
+"""Checks of the port's training on the card (chip_smoke.py's training
+phases), per recipe.
 
-    python3 scripts/train_check.py gate [runs] [sequences ...]
-    python3 scripts/train_check.py train
+    python3 scripts/train_check.py gate [module name] [runs] [sequences ...]
+    python3 scripts/train_check.py train [module name]
 
-gate: chip_smoke.py's `train_gate` figures (one train step of the seeded
-DiMP-50 on the card and on the CPU from equal weights and one batch of the
-recipe's pipeline of each given number of sequences) `runs` times (3) in
-one process, nothing gated: the loss, the gradient leaves (the worst six),
-the running statistics and Adam's step, card against CPU; then the card
-against itself with the images changed by 3e-7 relative (how far float32
-rounding alone moves them): to set the gate's bounds from.
+The recipe is named as `run_training` names it (train_settings/<module>/
+<name>.py; dimp dimp50 by default).
 
-train: chip_smoke.py's `train_dimp50` phase alone.
+gate: chip_smoke.py's `train_gate` figures for the recipe (dimp dimp50:
+`train_gate`; dimp prdimp50: `train_prdimp_gate`; bbreg atom:
+`train_atom_gate`; any recipe with `make_actor`): one train step of the
+recipe's seeded net on the card and on the CPU from equal weights and one
+batch of the recipe's pipeline of each given number of sequences, `runs`
+times (3) in one process, nothing gated: the loss, the gradient leaves (the
+worst six), the running statistics and Adam's step, card against CPU; then
+the card against itself with the images changed by 3e-7 relative (how far
+float32 rounding alone moves them): to set the gate's bounds from.
+
+train: chip_smoke.py's training phase of the recipe alone (dimp dimp50:
+`train_dimp50`; dimp prdimp50: `train_prdimp50`; bbreg atom: `train_atom`;
+any other recipe: one epoch of chip_smoke.TRAIN_SAMPLES sequences with
+`train_prdimp50`'s checks and figures).
 """
 
 import os
@@ -41,21 +49,45 @@ def _report(tag, f):
           f"{sorted(f['grad'].values())[len(worst) // 2]:.2e}", flush=True)
 
 
+PHASES = {("dimp", "dimp50"): chip_smoke.phase_train_dimp50,
+          ("dimp", "prdimp50"): chip_smoke.phase_train_prdimp50,
+          ("bbreg", "atom"): chip_smoke.phase_train_atom}
+
+
+def _recipe_arg(args):
+    """((module, name), the remaining args): two leading arguments that are
+    not numbers name the recipe."""
+    if len(args) >= 2 and not args[0].isdigit():
+        return (args[0], args[1]), args[2:]
+    return ("dimp", "dimp50"), args
+
+
 def gate(args):
-    """args: [runs] [sequences ...]: for each batch size, the card against
-    the CPU `runs` times, and the card against itself with the images
-    changed at rounding's scale."""
+    """args: [module name] [runs] [sequences ...]: for each batch size, the card
+    against the CPU `runs` times, and the card against itself with the
+    images changed at rounding's scale."""
+    recipe, args = _recipe_arg(args)
+    name = recipe[1]
     runs = int(args[0]) if args else 3
     for n in [int(a) for a in args[1:]] or [chip_smoke.TRAIN_GATE_SEQUENCES]:
-        batch = chip_smoke.train_gate_batch(sequences=n)
+        batch = chip_smoke.train_gate_batch(sequences=n, recipe=recipe)
         for r in range(runs):
-            _report(f"gate {n} sequences, run {r + 1}", chip_smoke.train_gate_figures(batch))
-        _report(f"gate {n} sequences, card vs card at 3e-7",
-                chip_smoke.train_gate_sensitivity(batch))
+            _report(f"gate {name} {n} sequences, run {r + 1}",
+                    chip_smoke.train_gate_figures(batch, recipe))
+        _report(f"gate {name} {n} sequences, card vs card at 3e-7",
+                chip_smoke.train_gate_sensitivity(batch, recipe=recipe))
 
 
 def train(args):
-    chip_smoke.phase_train_dimp50()
+    recipe, _ = _recipe_arg(args)
+    if recipe in PHASES:
+        PHASES[recipe]()
+        return
+    tag = f"train_{recipe[1]}"
+    trainer, _, peak, _ = chip_smoke._train_recipe_run(tag, *recipe, chip_smoke.TRAIN_SAMPLES)
+    chip_smoke._moved_parameters(tag, trainer, *recipe)
+    chip_smoke._step_report(tag, (trainer,), peak)
+    chip_smoke._profile_train_step(tag, trainer)
 
 
 if __name__ == "__main__":

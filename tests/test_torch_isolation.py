@@ -259,10 +259,16 @@ def test_harness_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     environment.reset_env_settings()
 
 
+TRAIN_RECIPES = (("dimp", "dimp50"), ("dimp", "dimp18"), ("dimp", "prdimp50"),
+                 ("dimp", "prdimp18"), ("dimp", "super_dimp"), ("dimp", "super_dimp_simple"),
+                 ("bbreg", "atom"), ("bbreg", "atom_paper"), ("bbreg", "atom_prob_ml"),
+                 ("bbreg", "atom_gmm_sampl"))
+
+
 def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):
-    """`run_training` (also from the command line) and the DiMP-50 recipe
-    default to the card and refuse to run without one, before they write
-    anything to the workspace."""
+    """`run_training` (also from the command line), every recipe's `run`
+    and its net builder default to the card and refuse to run without one,
+    before they write anything to the workspace."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal only shows without one")
     from pytracking_tpu_torch import run_training
@@ -270,10 +276,17 @@ def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     from pytracking_tpu_torch.training.train_settings.dimp import dimp50
 
     monkeypatch.setenv("PYTRACKING_TPU_TORCH_WORKSPACE", str(tmp_path))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        run_training.run_training("dimp", "dimp50", max_epochs=1, samples_per_epoch=8)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        run_training.main(["dimp", "dimp50", "--max_epochs", "1"])
+    for module, name in TRAIN_RECIPES:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_training.run_training(module, name, max_epochs=1, samples_per_epoch=8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_training.main([module, name, "--max_epochs", "1"])
+        recipe = importlib.import_module(
+            f"pytracking_tpu_torch.training.train_settings.{module}.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            recipe.run(Settings(), max_epochs=1, samples_per_epoch=8, net=torch.nn.Linear(1, 1))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            recipe.make_net(Settings())
     with pytest.raises(RuntimeError, match="CUDA"):
         dimp50.run(Settings(), max_epochs=1, samples_per_epoch=8, net=torch.nn.Linear(1, 1))
     assert Settings().workspace_dir == str(tmp_path)

@@ -1,7 +1,9 @@
 """The port's host data pipeline for training against the JAX package's, on
-the CPU: transforms, processing_utils, DiMPProcessing, DiMPSampler over the
-synthetic video dataset, the loader's collation, and the loader's shapes
-(the twin of tests/test_training.py's pipeline tests).
+the CPU: transforms, processing_utils, DiMPProcessing, KLDiMPProcessing
+(PrDiMP's mixture proposals and label densities), ATOMProcessing,
+DiMPSampler and ATOMSampler over the synthetic video dataset, the loader's
+collation, and the loader's shapes (the twin of tests/test_training.py's
+pipeline tests).
 
 The JAX pipeline draws from the global `random` / `np.random`; the port's
 from a `random.Random` and a `np.random.RandomState` passed down. Seeded
@@ -150,6 +152,110 @@ def test_dimp_processing_matches_jax():
         ref = _processing(j_processing, j_tfm)(data())
         got = _processing(t_processing, t_tfm)(data(), gens["rng"], gens["np_rng"])
         _equal(got, ref)
+
+
+def _kl_processing(module, tfm, labels=True, output_sz=96, sigmas=((0.05, 0.05), (0.5, 0.5))):
+    label_params = {"feature_sz": output_sz // 16, "sigma_factor": 0.05, "kernel_sz": 4}
+    return module.KLDiMPProcessing(
+        search_area_factor=5.0, output_sz=output_sz,
+        center_jitter_factor={"train": 3, "test": 4.5},
+        scale_jitter_factor={"train": 0.25, "test": 0.5},
+        proposal_params={"boxes_per_frame": 16, "proposal_sigma": [tuple(s) for s in sigmas]},
+        label_function_params=label_params if labels else None,
+        train_transform=tfm.Transform(tfm.BrightnessJitter(0.2), tfm.RandomHorizontalFlip(0.5)),
+        joint_transform=tfm.Transform(tfm.ToGrayscale(0.3)))
+
+
+def _atom_processing(module, tfm, output_sz=96):
+    return module.ATOMProcessing(
+        search_area_factor=5.0, output_sz=output_sz,
+        center_jitter_factor={"train": 0, "test": 4.5},
+        scale_jitter_factor={"train": 0, "test": 0.5},
+        proposal_params={"min_iou": 0.1, "boxes_per_frame": 16, "proposal_sigma": 0.05},
+        train_transform=tfm.Transform(tfm.BrightnessJitter(0.2)),
+        joint_transform=tfm.Transform(tfm.ToGrayscale(0.3)))
+
+
+KL_CASES = {  # (label densities, mixture components)
+    "prdimp": (True, ((0.05, 0.05), (0.5, 0.5))),
+    "prob_ml": (False, ((0.05, 0.05), (0.5, 0.5))),
+    "three_components": (True, ((0.02, 0.05), (0.1, 0.2), (0.5, 0.5))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KL_CASES))
+def test_kldimp_processing_matches_jax(case):
+    """KLDiMPProcessing against the JAX one under equal seeds, bit for bit:
+    the crops, the mixture proposals (each draws its component, each but
+    proposal 0 its offset, from the generator the sampler passes), their
+    densities (proposal 0's the mixture's density at a zero offset), the
+    ground-truth densities and the label densities."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    labels, sigmas = KL_CASES[case]
+    ims, boxes = _images(4, n=6, H=120, W=160), _boxes(4, n=6)
+    for seed in range(3):
+        data = lambda: {"train_images": list(ims[:3]), "train_anno": list(boxes[:3]),
+                        "test_images": list(ims[3:]), "test_anno": list(boxes[3:]),
+                        "dataset": "d"}
+        gens = _gens(seed)
+        ref = _kl_processing(j_processing, j_tfm, labels, sigmas=sigmas)(data())
+        got = _kl_processing(t_processing, t_tfm, labels, sigmas=sigmas)(
+            data(), gens["rng"], gens["np_rng"])
+        _equal(got, ref)
+        assert ("test_label_density" in got) == labels and "proposal_iou" not in got
+        dens = got["proposal_density"][0]
+        assert dens.shape == (16,) and dens[0] == dens.max() > 0
+        assert np.array_equal(got["test_proposals"][0][0], got["test_anno"][0]) or \
+            np.abs(got["test_proposals"][0][0] - got["test_anno"][0]).max() < 1e-4
+        assert got["gt_density"][0].tolist() == [1.0] + [0.0] * 15
+        # the draws went on where the processing left them
+        assert gens["np_rng"].randint(1 << 30) == np.random.randint(1 << 30)
+
+
+def test_atom_processing_matches_jax():
+    """ATOMProcessing (DiMP's without labels) against the JAX one, bit for
+    bit, at atom_paper's jitter (none on the train frame)."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    ims, boxes = _images(5, n=2, H=120, W=160), _boxes(5, n=2)
+    for seed in range(3):
+        data = lambda: {"train_images": [ims[0]], "train_anno": [boxes[0]],
+                        "test_images": [ims[1]], "test_anno": [boxes[1]], "dataset": "d"}
+        gens = _gens(seed)
+        ref = _atom_processing(j_processing, j_tfm)(data())
+        got = _atom_processing(t_processing, t_tfm)(data(), gens["rng"], gens["np_rng"])
+        _equal(got, ref)
+        assert "test_label" not in got and got["test_proposals"][0].shape == (16, 4)
+
+
+@pytest.mark.parametrize("kind", ["atom", "prob_ml"])
+def test_atom_sampler_matches_jax(kind):
+    """ATOMSampler[i] (one train and one test frame, 'interval' sampling
+    within max_gap) with ATOM's and the prob-ML recipe's processing, one
+    seed for the run."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu.training.datasets.synthetic_video import SyntheticVideoDataset
+    from pytracking_tpu.training.sampler import ATOMSampler
+    from pytracking_tpu_torch.training import processing as t_processing
+    from pytracking_tpu_torch.training.sampler import ATOMSampler as TATOMSampler
+
+    make = _atom_processing if kind == "atom" else \
+        (lambda m, tfm: _kl_processing(m, tfm, labels=False))
+    j = ATOMSampler([SyntheticVideoDataset(num_sequences=6, seq_len=30)], samples_per_epoch=6,
+                    max_gap=50, processing=make(j_processing, j_tfm))
+    t = TATOMSampler([TSyntheticVideoDataset(num_sequences=6, seq_len=30)], samples_per_epoch=6,
+                     max_gap=50, processing=make(t_processing, t_tfm), seed=7)
+    assert (t.num_train_frames, t.num_test_frames, t.frame_sample_mode) == (1, 1, "interval")
+    random.seed(7)
+    np.random.seed(7)
+    for i in range(4):
+        _equal(t[i], j[i])
 
 
 def _samplers(seed, samples=6):
