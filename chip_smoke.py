@@ -2953,11 +2953,15 @@ def _train_workspace(tag):
 
 
 def _device_rows(prof):
-    """(kernel name, device us, launches) of a profile, largest first."""
+    """(kernel name, device us, launches) of a profile, largest first. The
+    optimiser's step is also recorded as a device range ('Optimizer.step#
+    AdamW.step') spanning its kernels, which are rows of their own: it is
+    left out, or the kernel time would count them twice."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Optimizer.")]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -3085,32 +3089,103 @@ def _recipe(module, name):
         f"pytracking_tpu_torch.training.train_settings.{module}.{name}")
 
 
+class GateMOTDataset:
+    """A small multi-object synthetic video dataset for the TaMOs gate: 8
+    sequences of 30 frames of 240x320, each with three textured boxes of
+    28-40 px (ids 0, 1, 2) moving together within 30 px of object 0, so that
+    the crop around object 0 holds all three and every slot carries a
+    target. Annotations are per-frame {obj_id: box} dicts with visibility
+    per (frame, object)."""
+
+    H, W, T, N = 240, 320, 30, 8
+
+    def __len__(self):
+        return self.N
+
+    def get_name(self):
+        return "gate_mot"
+
+    def is_video_sequence(self):
+        return True
+
+    def is_mot_dataset(self):
+        return True
+
+    def get_num_sequences(self):
+        return self.N
+
+    def _layout(self, seq_id):
+        r = np.random.RandomState(100 + seq_id)
+        sizes = r.randint(28, 41, (3, 2)).astype(np.float32)
+        offsets = np.concatenate([np.zeros((1, 2)), r.uniform(-30, 30, (2, 2))]).astype(np.float32)
+        start = np.array([r.uniform(80, 200), r.uniform(70, 130)], np.float32)
+        velocity = r.uniform(-2, 2, 2).astype(np.float32)
+        return sizes, offsets, start, velocity
+
+    def get_sequence_info(self, seq_id):
+        sizes, offsets, start, velocity = self._layout(seq_id)
+        boxes = [{k: np.concatenate([start + velocity * t + offsets[k], sizes[k]])
+                  for k in range(3)} for t in range(self.T)]
+        return {"bbox": boxes, "visible": np.ones((self.T, 3), bool)}
+
+    def get_frames(self, seq_id, ids, info):
+        frames = []
+        for t in ids:
+            r = np.random.RandomState(1000 * seq_id + t)
+            im = r.randint(0, 70, (self.H, self.W, 3)).astype(np.uint8)
+            for k, b in info["bbox"][t].items():
+                x, y, w, h = [int(round(float(v))) for v in b]
+                im[max(y, 0):y + h, max(x, 0):x + w] = r.randint(
+                    120 + 40 * k, 160 + 40 * k, (len(range(max(y, 0), min(y + h, self.H))),
+                                                 len(range(max(x, 0), min(x + w, self.W))), 3))
+            frames.append(im)
+        return frames, {"bbox": [info["bbox"][t] for t in ids]}, None
+
+
+TRAIN_GATE_DATASETS = {("tamos", "tamos_resnet50"): lambda: [GateMOTDataset()]}
+
+
 def train_gate_batch(seed=0, sequences=None, recipe=("dimp", "dimp50")):
     """`sequences` (TRAIN_GATE_SEQUENCES) sequences from the recipe's sampler
-    (DiMP-50's: DiMPProcessing over the synthetic dataset) with its
-    generators seeded, collated."""
+    (DiMP-50's: DiMPProcessing over the synthetic dataset; TaMOs's over
+    GateMOTDataset) with its generators seeded, collated."""
     from pytracking_tpu_torch.training.loader import _stack_dim1
     from pytracking_tpu_torch.training.settings import Settings
 
     n = sequences or TRAIN_GATE_SEQUENCES
-    sampler = _recipe(*recipe).make_sampler(Settings(), samples_per_epoch=n, seed=seed)
+    datasets = TRAIN_GATE_DATASETS.get(tuple(recipe), lambda: None)()
+    sampler = _recipe(*recipe).make_sampler(Settings(), datasets, samples_per_epoch=n,
+                                            seed=seed)
     return _stack_dim1([sampler[i] for i in range(n)])
+
+
+def _no_dropout(net):
+    """Dropout off in every transformer layer and attention of `net` (the
+    gates hold card against CPU, whose masks differ)."""
+    from pytracking_tpu_torch.models.transformer import transformer
+
+    for m in net.modules():
+        if isinstance(m, (transformer.MultiheadAttention, transformer._Layer)):
+            m.dropout = 0.0
+    return net
 
 
 def _train_gate_step(device, batch, recipe=("dimp", "dimp50")):
     """One train step of the recipe's seeded net (DiMP-50's; train mode) on
     `device` with the recipe's actor and per-module Adam: the loss, stats,
     gradients, running statistics and parameters, on the host."""
-    from pytracking_tpu_torch.parallel.mesh import read_stats
+    from pytracking_tpu_torch.parallel.mesh import read_stats, zero_missing_grads
     from pytracking_tpu_torch.training.optim import adam_per_module
     from pytracking_tpu_torch.training.settings import Settings
     from pytracking_tpu_torch.training.trainer import batch_to_device
     from pytracking_tpu_torch.utils.device import ieee_float32
 
     mod, settings = _recipe(*recipe), Settings()
-    net = mod.make_net(settings, device).train()
+    net = _no_dropout(mod.make_net(settings, device).train())
     actor = mod.make_actor(settings)
     optimizer, _ = adam_per_module(net, mod.BASE_LR, mod.MODULE_LRS, steps_per_epoch=1,
+                                   milestones=getattr(mod, "MILESTONES", None),
+                                   weight_decay=getattr(mod, "WEIGHT_DECAY", None),
                                    freeze_unlisted=mod.FREEZE_UNLISTED)
     lrs = {id(p): g["lr"] for g in optimizer.param_groups for p in g["params"]}
     start = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
@@ -3118,6 +3193,7 @@ def _train_gate_step(device, batch, recipe=("dimp", "dimp50")):
         loss, stats = actor(net)(batch_to_device(batch, device))
         loss.backward()
         grads = {n: p.grad.cpu() for n, p in net.named_parameters() if p.grad is not None}
+        zero_missing_grads(optimizer)
         optimizer.step()
     out = {"stats": read_stats(stats, device), "grads": grads, "start": start,
            "lr": {n: lrs.get(id(p), 0.0) for n, p in net.named_parameters()},
@@ -3125,6 +3201,51 @@ def _train_gate_step(device, batch, recipe=("dimp", "dimp50")):
     del net, optimizer
     torch.cuda.empty_cache()
     return out
+
+
+def _transformer_exact_zero(name):
+    """Whether a leaf of ToMP's or TaMOs's head has a gradient that is
+    exactly 0 by construction, rounding alone making it otherwise: an
+    attention key's bias (the softmax cancels it), the box encoder's biases
+    before its train-mode BatchNorms, the first decoder layer's
+    self-attention value weight (its input, the targets, starts at 0) and
+    query / key projections (its values are all alike), and with ToMP's
+    single query every decoder self-attention's query / key (a softmax over
+    one key). Returns 'block' for an attention projection (held to its
+    attention block's scale), 'layer' for another bias (held to its
+    layer's weight's), None otherwise."""
+    import re
+
+    single_query = name.startswith("head.filter_predictor.")
+    m = re.search(r"decoder\.(\d+)\.self_attn\.(query|key|value)\.(weight|bias)$", name)
+    if m and (m.group(2) != "value" and (single_query or m.group(1) == "0")
+              or (m.group(1) == "0" and m.group(2) == "value" and m.group(3) == "weight")):
+        return "block"
+    if name.endswith("key.bias"):
+        return "block"
+    if name.endswith(("box_encoding.lin0.bias", "box_encoding.lin1.bias")):
+        return "layer"
+    return None
+
+
+def _zero_grad_scale(n, ref):
+    """The gradient scale a leaf whose gradient is exactly 0 is held to (its
+    block's or its layer's weight's, on the reference side), or None for
+    a leaf whose gradient is not."""
+    if n.count(".") < 2:
+        return None
+    block, layer, leaf = n.rsplit(".", 2)
+    if leaf == "bias" and layer in ("Conv_0", "Dense_0") \
+            and f"{block}.BatchNorm_0.running_mean" in ref["state"]:
+        # DiMP's and ATOM's bias before a train-mode BatchNorm
+        return float(ref["grads"][f"{block}.{layer}.weight"].abs().max())
+    kind = _transformer_exact_zero(n)
+    if kind == "block":
+        return max(float(g.abs().max()) for k, g in ref["grads"].items()
+                   if k.startswith(block + "."))
+    if kind == "layer":
+        return float(ref["grads"][f"{block}.{layer}.weight"].abs().max())
+    return None
 
 
 def _train_compare(got, ref):
@@ -3139,13 +3260,14 @@ def _train_compare(got, ref):
     check(set(got["grads"]) == set(ref["grads"]), "train_gate: different parameters got gradients")
     grad, zero_grad = {}, set()
     for n, g in ref["grads"].items():
-        block, layer, leaf = n.rsplit(".", 2)
-        if leaf == "bias" and layer in ("Conv_0", "Dense_0") \
-                and f"{block}.BatchNorm_0.running_mean" in ref["state"]:
-            # the bias before a train-mode BatchNorm: exactly 0, rounding on both sides
+        scale = _zero_grad_scale(n, ref)
+        if scale is not None:
+            # exactly 0: rounding on both sides
             zero_grad.add(n)
-            scale = float(ref["grads"][f"{block}.{layer}.weight"].abs().max())
             grad[n] = max(float(g.abs().max()), float(got["grads"][n].abs().max())) / scale
+        elif float(g.abs().max()) == 0:
+            # a zero input (the first decoder layer's targets): exactly 0 on both sides
+            grad[n] = 0.0 if float(got["grads"][n].abs().max()) == 0 else float("inf")
         else:
             grad[n] = float((got["grads"][n] - g).abs().max() / g.abs().max())
     buf = {k: float((got["state"][k] - v).abs().max() / max(1.0, float(v.abs().max())))
@@ -3153,7 +3275,7 @@ def _train_compare(got, ref):
     step, off, total = {}, 0, 0
     for n, g in ref["grads"].items():
         lr = ref["lr"][n]
-        if lr == 0 or n in zero_grad:
+        if lr == 0 or n in zero_grad or float(g.abs().max()) == 0:
             continue
         err = ((got["state"][n] - got["start"][n]) - (ref["state"][n] - ref["start"][n])).abs() / lr
         big = g.abs() >= 0.01 * g.abs().max()
@@ -3196,6 +3318,12 @@ def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_G
     TRAIN_STEP_GATE of lr for at most 'step_share' of the elements."""
     b, n = bounds, TRAIN_GATE_SEQUENCES
     batch = train_gate_batch(recipe=recipe)
+    if "test_sample_region" in batch:
+        # TaMOs: the slots with a target in each sequence's test frame
+        active = (batch["test_label"].max(axis=(2, 3)) > 0.05)[0]
+        print(f"{tag}: slots with a target per sequence {active.sum(axis=-1).tolist()}",
+              flush=True)
+        check(active.any(axis=0).all(), f"{tag}: a slot has no target in any sequence")
     _k1_zero()
     f = train_gate_figures(batch, recipe)
     k1 = _k1_path(tag)
@@ -3224,7 +3352,8 @@ def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_G
 TRAIN_RECIPE_STEPS = 3               # steps of each recipe in train_recipes
 TRAIN_RECIPES = (("dimp", "dimp18"), ("dimp", "prdimp18"), ("dimp", "super_dimp"),
                  ("dimp", "super_dimp_simple"), ("bbreg", "atom_paper"),
-                 ("bbreg", "atom_prob_ml"), ("bbreg", "atom_gmm_sampl"))
+                 ("bbreg", "atom_prob_ml"), ("bbreg", "atom_gmm_sampl"), ("tomp", "tomp101"),
+                 ("tamos", "tamos_swin_base"))
 
 
 def _train_recipe_run(tag, module, name, samples):
@@ -3262,15 +3391,24 @@ def _train_recipe_run(tag, module, name, samples):
     return trainer, seconds, peak, k1
 
 
-def _moved_parameters(tag, trainer, module, name):
+def _moved_parameters(tag, trainer, module, name, reached=False):
     """Every parameter the recipe trains (requires_grad; ResNet's layer4,
     which DiMP's nets never run, left out) moved from the recipe's seeded
-    net, and no other; returns the seeded net's state_dict."""
+    net, and no other; returns the seeded net's state_dict. With `reached`
+    (ToMP, TaMOs), a trained parameter whose last step's gradient is 0 (the
+    first decoder layer's self-attention sees targets that start at 0; the
+    FPN's unused level) may stay, each printed."""
     seeded = _recipe(module, name).make_net(trainer.settings, "cuda").state_dict()
     params = dict(trainer.net.named_parameters())
     moved = {n for n, p in params.items() if not torch.equal(p, seeded[n])}
     trained = {n for n, p in params.items()
                if p.requires_grad and not n.startswith("feature_extractor.layer4")}
+    if reached:
+        static = {n for n in trained - moved
+                  if params[n].grad is None or not bool(params[n].grad.any())}
+        print(f"{tag}: trained parameters without a gradient, not moved: {sorted(static)}",
+              flush=True)
+        trained -= static
     check(moved == trained, f"{tag}: not moved {sorted(trained - moved)[:5]}, moved and not "
           f"trained {sorted(moved - trained)[:5]}")
     print(f"{tag}: {len(moved)} of {len(params)} parameter tensors moved, the {len(trained)} "
@@ -3362,10 +3500,160 @@ def phase_train_recipes(tag="train_recipes"):
         trainer, seconds, peak, n = _train_recipe_run(
             sub, module, name, TRAIN_RECIPE_STEPS * 8)
         k1 += n
-        _moved_parameters(sub, trainer, module, name)
+        _moved_parameters(sub, trainer, module, name, reached=module in ("tomp", "tamos"))
         _step_report(sub, (trainer,), peak, first=1)
         del trainer
         torch.cuda.empty_cache()
+    return k1
+
+
+# ------------------------------------------------ training: ToMP and TaMOs
+
+# train_tomp_gate / train_tamos_gate: card against CPU after one step at
+# dropout 0 (the masks differ by device), 4 sequences of the recipe's
+# pipeline (TaMOs's over GateMOTDataset), each bound about ten times the
+# larger of the card against the CPU and the card against itself at 3e-7
+# (scripts/train_check.py gate tomp tomp50 1 + gate tamos tamos_resnet50 1;
+# NVIDIA H100 80GB HBM3, 700.00 W), the two readings beside each. Only the
+# box encoder's BatchNorms train (the backbone's are frozen), so the
+# running statistics move little. Adam's first step is lr * sign(g), so an
+# element whose gradient is within rounding of 0 flips: as many on the
+# card against itself as against the CPU.
+TRAIN_TOMP_GATE_BOUNDS = {"loss": 3e-5,          # 2.48e-6; 0
+                          "stats": 2e-6,         # 1.09e-7; 0
+                          "grad": 1e-2,          # 1.04e-3; 5.32e-4
+                          "grad_median": 5e-5,   # 5.27e-6; 3.42e-6
+                          "step_share": 2e-2}    # 0.180%; 0.187%
+TRAIN_TAMOS_GATE_BOUNDS = {"loss": 2e-5,         # 1.43e-6; 1.15e-7
+                           "stats": 2e-6,        # 1.13e-7; 0
+                           "grad": 5e-2,         # 4.57e-3; 3.65e-3
+                           "grad_median": 1e-4,  # 9.40e-6; 7.02e-6
+                           "step_share": 5e-2}   # 0.531%; 0.548%
+DROPOUT_SEED = 12
+
+
+def _frozen_report(tag, trainer, seeded):
+    """The backbone's BatchNorm running statistics (frozen: eval mode in
+    train mode) bit for bit the seeded ones; the box encoder's moved.
+    Returns the number of backbone statistics."""
+    state = trainer.net.state_dict()
+    stats = [k for k in state if k.endswith(("running_mean", "running_var"))]
+    backbone = [k for k in stats if k.startswith("feature_extractor.")]
+    box_enc = [k for k in stats if "box_encoding" in k]
+    check(all(torch.equal(state[k], seeded[k]) for k in backbone),
+          f"{tag}: backbone running statistics moved: "
+          f"{[k for k in backbone if not torch.equal(state[k], seeded[k])][:5]}")
+    check(box_enc and all(not torch.equal(state[k], seeded[k]) for k in box_enc),
+          f"{tag}: the box encoder's running statistics did not move")
+    print(f"{tag}: {len(backbone)} backbone running statistics bit for bit the seeded ones; "
+          f"the box encoder's {len(box_enc)} moved", flush=True)
+    return len(backbone)
+
+
+def _train_transformer_phase(tag, module, name, samples=TRAIN_SAMPLES, profile=True,
+                             first=TRAIN_TIMED_FROM):
+    """ToMP's or TaMOs's training through `run_training(module, name)` at full
+    width on the recipe's synthetic data, dropout on: _train_recipe_run's
+    checks (finite losses, the checkpoint, one host synchronisation per
+    step after the first, K1 0), every trained parameter with a gradient
+    moved and every frozen one bit for bit the seeded one, backbone
+    BatchNorm statistics included; the encoder's attention projections
+    moved; ms per step, sequences/s, peak memory and a profiled step."""
+    trainer, _, peak, k1 = _train_recipe_run(tag, module, name, samples)
+    seeded = _moved_parameters(tag, trainer, module, name, reached=True)
+    params = dict(trainer.net.named_parameters())
+    enc = [n for n in params if ".encoder." in n and ".self_attn." in n
+           and n.endswith(("query.weight", "key.weight", "value.weight"))]
+    check(enc and all(not torch.equal(params[n], seeded[n]) for n in enc),
+          f"{tag}: the encoder's attention projections did not all move")
+    print(f"{tag}: the encoder's {len(enc)} query / key / value projections moved", flush=True)
+    _frozen_report(tag, trainer, seeded)
+    _step_report(tag, (trainer,), peak, first=first)
+    if profile:
+        _profile_train_step(tag, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_train_tomp50(tag="train_tomp50"):
+    """ToMP-50 training (8 sequences x 2 train + 1 test frames at 288x288,
+    ResNet-50 to layer3 with its BatchNorm frozen, the 512-wide 6 + 6 layer
+    transformer with dropout 0.1, GIoU + LBHinge, AdamW on the head and
+    layer3): one epoch of TRAIN_SAMPLES sequences (_train_transformer_phase)."""
+    return _train_transformer_phase(tag, "tomp", "tomp50")
+
+
+def phase_train_tamos(tag="train_tamos"):
+    """TaMOs-ResNet50 training (8 sequences x 1 + 1 frames at 288x288, K = 3
+    slots, the FPN level at stride 8, the 256-wide transformer with head
+    dim 32 at L = 648, which in eval mode would take K1): one epoch of
+    TRAIN_SAMPLES sequences (_train_transformer_phase)."""
+    return _train_transformer_phase(tag, "tamos", "tamos_resnet50")
+
+
+def phase_train_dropout(tag="train_dropout", device="cuda"):
+    """The transformer's dropout on the card: ToMP-50's train-mode step
+    (forward, loss, every gradient) on 2 sequences of its pipeline twice
+    with the dropout seed DROPOUT_SEED, bit for bit equal (cuDNN
+    deterministic for the check), and once with the next seed, different;
+    torch's global CUDA generator untouched; a million-element draw keeps
+    within 1% of 0.9 of its elements, scaled by 1 / 0.9; an attention-weight
+    mask shared by every batch entry and head. (`device` "cpu" rehearses
+    it.)"""
+    from pytracking_tpu_torch.models.transformer import transformer
+    from pytracking_tpu_torch.training.settings import Settings
+    from pytracking_tpu_torch.training.trainer import batch_to_device
+    from pytracking_tpu_torch.utils.device import ieee_float32
+
+    mod, settings = _recipe("tomp", "tomp50"), Settings()
+    batch = batch_to_device(train_gate_batch(sequences=2, recipe=("tomp", "tomp50")), device)
+    _k1_zero()
+    net = mod.make_net(settings, device).train()
+    actor = mod.make_actor(settings)(net)
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    global_state = torch.cuda.get_rng_state()
+    runs = []
+    try:
+        for seed in (DROPOUT_SEED, DROPOUT_SEED, DROPOUT_SEED + 1):
+            net.zero_grad(set_to_none=True)
+            with ieee_float32():
+                loss = actor(dict(batch, rng_seed=seed))[0]
+                loss.backward()
+            runs.append((loss.detach().clone(),
+                         {n: p.grad.clone() for n, p in net.named_parameters()
+                          if p.grad is not None}))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    k1 = _k1_path(tag)
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(g, runs[1][1][n]) for n, g in runs[0][1].items())
+    other = [float(r[0]) for r in runs]
+    untouched = torch.equal(torch.cuda.get_rng_state(), global_state)
+    g = torch.Generator(device=device).manual_seed(DROPOUT_SEED)
+    y = transformer.dropout(torch.ones(1024, 1024, device=device), 0.1, g)
+    kept = y != 0
+    share = float(kept.float().mean())
+    scaled = torch.equal(y[kept], torch.full_like(y[kept], 1 / 0.9))
+    B, H, L = 2, 4, 512
+    q = torch.zeros(B, L, H, L, device=device)
+    v = torch.eye(L, device=device).expand(B, H, L, L).permute(0, 2, 1, 3).contiguous()
+    w = transformer._plain_attention(q, q, v, None, 0.1, g).permute(0, 2, 1, 3)
+    shared = torch.equal(w == 0, (w[:1, :1] == 0).expand_as(w))
+    n_grads = len(runs[0][1])
+    del net, actor, batch, runs
+    torch.cuda.empty_cache()
+    print(f"{tag}: ToMP-50 train-mode step, seed {DROPOUT_SEED} twice, the loss and all "
+          f"{n_grads} gradients bit for bit equal: {same}; losses {other}; global CUDA "
+          f"generator untouched: {untouched}; keep share {share:.5f} (0.9 +- 1%), kept values "
+          f"1 / 0.9: {scaled}; attention mask shared over batch and heads: {shared}",
+          flush=True)
+    check(same, f"{tag}: the same seed gave different steps")
+    check(other[2] != other[0], f"{tag}: another seed gave the same loss")
+    check(untouched, f"{tag}: the global CUDA generator moved")
+    check(abs(share - 0.9) < 0.009 and scaled and shared, f"{tag}: dropout's draws are off")
     return k1
 
 
@@ -3569,6 +3857,18 @@ def main():
         phase = "train_atom_gate"
         kernel["launches_by_path"]["train_atom_gate"] = phase_train_gate(
             phase, ("bbreg", "atom"), TRAIN_ATOM_GATE_BOUNDS)
+        phase = "train_tomp50"
+        kernel["launches_by_path"]["train_tomp50"] = phase_train_tomp50()
+        phase = "train_tamos"
+        kernel["launches_by_path"]["train_tamos"] = phase_train_tamos()
+        phase = "train_tomp_gate"
+        kernel["launches_by_path"]["train_tomp_gate"] = phase_train_gate(
+            phase, ("tomp", "tomp50"), TRAIN_TOMP_GATE_BOUNDS)
+        phase = "train_tamos_gate"
+        kernel["launches_by_path"]["train_tamos_gate"] = phase_train_gate(
+            phase, ("tamos", "tamos_resnet50"), TRAIN_TAMOS_GATE_BOUNDS)
+        phase = "train_dropout"
+        kernel["launches_by_path"]["train_dropout"] = phase_train_dropout()
     except Exception as e:  # report which phase failed, then fail the run
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise

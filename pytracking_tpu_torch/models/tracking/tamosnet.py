@@ -82,12 +82,29 @@ class FPN(nn.Module):
         return {"feat2": self.smooth2(lat2 + up3), "feat3": self.smooth3(lat3)}
 
 
+def backbone_bn_eval(net: nn.Module, mode: bool) -> None:
+    """After `nn.Module.train(mode)`: with the net's `freeze_backbone_bn`,
+    the backbone's BatchNorms stay in eval mode in train mode (they
+    normalise with their running statistics, which do not move), as the
+    JAX nets run their backbone with train=False."""
+    if mode and net.freeze_backbone_bn:
+        for m in net.feature_extractor.modules():
+            if isinstance(m, BatchNorm):
+                m.eval()
+
+
 class TaMOsNet(nn.Module):
+    """In train mode (`net.train()`) the head trains: the box encoder's
+    BatchNorms on the batch's statistics, the transformer's dropout drawn
+    from the `generator` given to `forward`; with `freeze_backbone_bn` the
+    backbone's BatchNorms stay in eval mode."""
+
     def __init__(self, feature_extractor: nn.Module, head_feature_extractor: nn.Module,
                  filter_predictor: GOTFilterPredictor, classifier: LinearFilterClassifier,
                  bb_regressor: DenseBoxRegressor, fpn: FPN, head_layer: str = "layer3",
-                 high_res_layer: str = "layer2"):
+                 high_res_layer: str = "layer2", freeze_backbone_bn: bool = False):
         super().__init__()
+        self.freeze_backbone_bn = freeze_backbone_bn
         self.feature_extractor = feature_extractor
         self.head_feature_extractor = head_feature_extractor
         self.filter_predictor = filter_predictor
@@ -97,6 +114,11 @@ class TaMOsNet(nn.Module):
         self.head_layer = head_layer
         self.high_res_layer = high_res_layer
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        backbone_bn_eval(self, mode)
+        return self
+
     def extract_backbone(self, im: torch.Tensor) -> Dict[str, torch.Tensor]:
         """im (N, 3, H, W), 0-255."""
         return self.feature_extractor(backbones.normalize_image(im))
@@ -105,9 +127,9 @@ class TaMOsNet(nn.Module):
         return self.head_feature_extractor(backbone_feat[self.head_layer])
 
     def predict_filters(self, train_feat, test_feat, train_label, train_ltrb=None,
-                        train_frame_mask=None):
+                        train_frame_mask=None, generator=None):
         return self.filter_predictor.predict_filter(
-            train_feat, test_feat, train_label, train_ltrb, train_frame_mask)
+            train_feat, test_feat, train_label, train_ltrb, train_frame_mask, generator)
 
     def predict_filters_parallel(self, train_feat, test_feat, train_label, train_ltrb,
                                  train_frame_mask, gth_frame_mask):
@@ -135,10 +157,12 @@ class TaMOsNet(nn.Module):
         return self.bb_regressor(feat, filters)
 
     @ieee_float32()
-    def forward(self, train_imgs, test_imgs, train_label, train_ltrb=None):
+    def forward(self, train_imgs, test_imgs, train_label, train_ltrb=None, generator=None):
         """train_imgs (Ntr, Ns, 3, H, W); test_imgs (Nte, Ns, 3, H, W);
-        train_label (Ntr, Ns, K, h, w). Returns (scores (Nte, Ns, K, h2, w2),
-        ltrb (Nte, Ns, K, 4, h2, w2)) on the high-res FPN level."""
+        train_label (Ntr, Ns, K, h, w); train_ltrb (Ntr, Ns, K, h, w, 4).
+        Returns (scores (Nte, Ns, K, h2, w2), ltrb (Nte, Ns, K, 4, h2, w2)) on
+        the high-res FPN level. `generator` draws the dropout masks in train
+        mode."""
         Ntr, Ns = train_imgs.shape[:2]
         Nte = test_imgs.shape[0]
         tr = self.extract_backbone(train_imgs.flatten(0, 1))
@@ -147,7 +171,8 @@ class TaMOsNet(nn.Module):
         te_f = self.extract_head_feat(te)
         tr_f = tr_f.reshape((Ntr, Ns) + tr_f.shape[1:])
         te_f = te_f.reshape((Nte, Ns) + te_f.shape[1:])
-        filters, te_enc = self.predict_filters(tr_f, te_f, train_label, train_ltrb)
+        filters, te_enc = self.predict_filters(tr_f, te_f, train_label, train_ltrb,
+                                               generator=generator)
         pyr = self.run_fpn(te_enc, te)
         return self.classify(pyr["feat2"], filters), self.bbreg(pyr["feat2"], filters)
 
@@ -190,10 +215,11 @@ def tamosnet_resnet50(filter_size: int = 1, head_layer: str = "layer3",
                       num_tokens: int = 10, box_enc: str = "ltrb_token",
                       backbone_dtype: Optional[torch.dtype] = None,
                       transformer_dtype: Optional[torch.dtype] = None,
+                      freeze_backbone_bn: bool = False,
                       generator: Optional[torch.Generator] = None,
                       device="cuda") -> TaMOsNet:
     """TaMOs-ResNet50 on `device`, weights drawn from `generator` (seed 0
-    when none is given)."""
+    when none is given), in eval mode."""
     device = resolve_device(device)
     backbone = backbones.resnet50(output_layers=("layer2", "layer3"),
                                   dtype=backbone_dtype)
@@ -210,7 +236,8 @@ def tamosnet_resnet50(filter_size: int = 1, head_layer: str = "layer3",
                    filter_predictor=fp,
                    classifier=LinearFilterClassifier(out_feature_dim),
                    bb_regressor=DenseBoxRegressor(out_feature_dim),
-                   fpn=FPN(out_feature_dim, 512, out_feature_dim), head_layer=head_layer)
+                   fpn=FPN(out_feature_dim, 512, out_feature_dim), head_layer=head_layer,
+                   freeze_backbone_bn=freeze_backbone_bn)
     init_weights(net, generator or torch.Generator().manual_seed(0))
     return net.to(device).eval()
 
@@ -226,7 +253,7 @@ def tamosnet_swin_base(filter_size: int = 1, out_feature_dim: int = 256,
     """TaMOs with a Swin-Base backbone (float32) on `device`: the head
     feature from stage3 (512 channels), the FPN's high-res level from
     stage2 (256 channels). Weights drawn from `generator` (seed 0 when none
-    is given)."""
+    is given), in eval mode. Swin has no BatchNorm to freeze."""
     device = resolve_device(device)
     norm_scale = math.sqrt(1.0 / (out_feature_dim * filter_size * filter_size))
     head_fe = ResidualBottleneck(in_dim=512, out_dim=out_feature_dim, norm_scale=norm_scale,

@@ -47,7 +47,8 @@ def _frame_key_padding(frame_mask: torch.Tensor, train_hw: int, test_len: int
 
 class BoxEncoder(nn.Module):
     """Tokenwise MLP 4 -> d/4 -> d -> d with BatchNorm + ReLU between layers,
-    on (..., 4)."""
+    on (..., 4). In train mode the BatchNorms normalise over every token of
+    the batch and move their running statistics, as flax's do."""
 
     def __init__(self, d_model: int):
         super().__init__()
@@ -68,7 +69,8 @@ class FilterPredictor(nn.Module):
     """ToMP's model predictor: train tokens carry the foreground token times
     the Gaussian label plus the box encoding of the dense LTRB map, test
     tokens the test-frame token; the single decoder query is the foreground
-    token and its output is the filter."""
+    token and its output is the filter. `generator` draws the transformer's
+    dropout masks in train mode."""
 
     def __init__(self, transformer: Transformer, feature_sz: int = 18,
                  use_test_frame_encoding: bool = True):
@@ -99,22 +101,22 @@ class FilterPredictor(nn.Module):
                          _pos_tokens(test_feat, self.feature_sz)], dim=1)
         return seq, pos
 
-    def _decode(self, seq, pos, key_padding, test_feat):
+    def _decode(self, seq, pos, key_padding, test_feat, generator=None):
         """-> (filters (B, C), enhanced test feature (Nf_te, B, C, h, w)), B
         the sequence batch."""
         Nf_te, _, C, h, w = test_feat.shape
         dec, mem = self.transformer(seq, self.query_embed_fg, pos,
-                                    key_padding_mask=key_padding)
+                                    key_padding_mask=key_padding, generator=generator)
         enc = mem[:, -Nf_te * h * w:].reshape(seq.shape[0], Nf_te, h, w, C)
         return dec[:, 0], enc.permute(1, 0, 4, 2, 3)
 
-    def forward(self, train_feat, test_feat, train_label, train_ltrb):
-        return self.predict_filter(train_feat, test_feat, train_label, train_ltrb)
+    def forward(self, train_feat, test_feat, train_label, train_ltrb, generator=None):
+        return self.predict_filter(train_feat, test_feat, train_label, train_ltrb, generator)
 
-    def predict_filter(self, train_feat, test_feat, train_label, train_ltrb):
+    def predict_filter(self, train_feat, test_feat, train_label, train_ltrb, generator=None):
         """Returns (filter (Ns, C), enhanced test feature (Nf_te, Ns, C, h, w))."""
         seq, pos = self._build_sequence(train_feat, test_feat, train_label, train_ltrb)
-        return self._decode(seq, pos, None, test_feat)
+        return self._decode(seq, pos, None, test_feat, generator)
 
     def predict_cls_bbreg_filters_parallel(self, train_feat, test_feat, train_label,
                                            train_ltrb, cls_frame_mask=None,

@@ -49,18 +49,19 @@ class GOTFilterPredictor(nn.Module):
             tok = tok + torch.einsum("blkc,kc->blc", self.box_encoding(ltrb_tok), fg)
         return tok
 
-    def _decode(self, seq, pos, key_padding, test_feat):
+    def _decode(self, seq, pos, key_padding, test_feat, generator=None):
         """-> (filters (B, K, C), enhanced test feature (Nf_te, B, C, h, w)),
         B the sequence batch."""
         Nf_te, _, C, h, w = test_feat.shape
         dec, mem = self.transformer(seq, self.query_embed_fg, pos,
-                                    key_padding_mask=key_padding)
+                                    key_padding_mask=key_padding, generator=generator)
         enc = mem[:, -Nf_te * h * w:].reshape(seq.shape[0], Nf_te, h, w, C)
         return dec, enc.permute(1, 0, 4, 2, 3)
 
     def predict_filter(self, train_feat, test_feat, train_label, train_ltrb=None,
-                       train_frame_mask=None):
-        """Returns (filters (Ns, K, C), enhanced test feature (Nf_te, Ns, C, h, w))."""
+                       train_frame_mask=None, generator=None):
+        """Returns (filters (Ns, K, C), enhanced test feature (Nf_te, Ns, C, h, w));
+        `generator` draws the transformer's dropout masks in train mode."""
         Nf, Ns, C, H, W = train_feat.shape
         Nf_te, _, _, h, w = test_feat.shape
         seq = torch.cat([self._train_tokens(train_feat, train_label, train_ltrb),
@@ -70,7 +71,7 @@ class GOTFilterPredictor(nn.Module):
         if train_frame_mask is not None:
             key_padding = _frame_key_padding(train_frame_mask, H * W,
                                              Nf_te * h * w)[None].expand(Ns, -1)
-        return self._decode(seq, pos, key_padding, test_feat)
+        return self._decode(seq, pos, key_padding, test_feat, generator)
 
     def predict_cls_bbreg_filters_parallel(self, train_feat, test_feat, train_label,
                                            train_ltrb, train_frame_mask, gth_frame_mask):

@@ -82,9 +82,10 @@ class Head(nn.Module):
         out = self.feature_extractor(feat.flatten(0, 1))
         return out.reshape(feat.shape[:2] + out.shape[1:])
 
-    def get_filter_and_features(self, train_feat, test_feat, train_label, train_ltrb):
+    def get_filter_and_features(self, train_feat, test_feat, train_label, train_ltrb,
+                                generator=None):
         weights, test_feat_enc = self.filter_predictor(train_feat, test_feat, train_label,
-                                                       train_ltrb)
+                                                       train_ltrb, generator)
         return weights, weights, test_feat_enc
 
     def get_filter_and_features_in_parallel(self, train_feat, test_feat, train_label,
@@ -100,10 +101,10 @@ class Head(nn.Module):
     def run_bbreg(self, feat: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
         return self.bb_regressor(feat, filt[:, None])[:, :, 0]
 
-    def forward(self, train_feat, test_feat, train_bb_label, train_ltrb):
+    def forward(self, train_feat, test_feat, train_bb_label, train_ltrb, generator=None):
         train_feat = self.extract_head_feat(train_feat)
         test_feat = self.extract_head_feat(test_feat)
         cls_filter, breg_filter, test_feat_enc = self.get_filter_and_features(
-            train_feat, test_feat, train_bb_label, train_ltrb)
+            train_feat, test_feat, train_bb_label, train_ltrb, generator)
         return (self.run_classifier(test_feat_enc, cls_filter),
                 self.run_bbreg(test_feat_enc, breg_filter))

@@ -122,7 +122,9 @@ def fused_self_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
     True = key is attendable (the inverse of torch's key_padding_mask).
 
     CUDA tensors: float32 or bfloat16, D in HEAD_DIMS, contiguous. Each launch
-    adds one to `fused_self_attention.launches`."""
+    adds one to `fused_self_attention.launches`. The kernel has no backward:
+    on any device, an input that requires grad while autograd records
+    raises (its output would carry no gradient)."""
     if key.shape != query.shape or value.shape != query.shape:
         raise ValueError("fused_self_attention is self-attention only "
                          f"(got q {tuple(query.shape)}, k {tuple(key.shape)}, "
@@ -133,6 +135,10 @@ def fused_self_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
     if key_keep_mask is not None and (key_keep_mask.shape != (B, L)
                                       or key_keep_mask.dtype != torch.bool):
         raise ValueError("key_keep_mask must be a (B, L) bool tensor")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (query, key, value)):
+        raise RuntimeError("fused_self_attention has no backward: call it with autograd off "
+                           "(eval mode under torch.inference_mode or torch.no_grad); the "
+                           "transformer's train mode takes the plain attention")
     if sm_scale is None:
         sm_scale = float(D) ** -0.5
     if query.device.type == "cpu":

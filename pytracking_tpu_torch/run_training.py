@@ -5,8 +5,9 @@ pytracking_tpu/run_training.py).
         [--device cuda]
 
 The recipes: dimp {dimp50, dimp18, prdimp50, prdimp18, super_dimp,
-super_dimp_simple} and bbreg {atom, atom_paper, atom_prob_ml,
-atom_gmm_sampl} (training/train_settings/<module>/<name>.py).
+super_dimp_simple}, bbreg {atom, atom_paper, atom_prob_ml, atom_gmm_sampl},
+tomp {tomp50, tomp101} and tamos {tamos_resnet50, tamos_swin_base}
+(training/train_settings/<module>/<name>.py).
 
 Checkpoints go to <workspace>/checkpoints/<module>/<name>/epNNNN.ckpt
 (training/settings.py), and a rerun resumes from the latest. The device

@@ -1,6 +1,7 @@
 """Actors: the training loss on top of a net's forward (counterpart of
 pytracking_tpu/training/actors/tracking.py `make_dimp_actor`,
-`make_atom_actor`, `make_kldimp_actor`).
+`make_atom_actor`, `make_kldimp_actor`, `make_tomp_actor`,
+`make_tamos_actor`).
 
 An actor is called on a batch on the device and returns (loss, stats),
 both device tensors; the train step differentiates the loss with autograd
@@ -9,7 +10,12 @@ and reads the stats back once. Batch layout, frame-major: train_images
 train_anno (Ntrain, S, 4), test_proposals (Ntest, S, P, 4), proposal_iou
 (Ntest, S, P), test_label (Ntest, S, h, w); PrDiMP's processing gives
 proposal_density and gt_density (Ntest, S, P) and test_label_density
-(Ntest, S, h, w) instead of proposal_iou and test_label.
+(Ntest, S, h, w) instead of proposal_iou and test_label. ToMP's and
+TaMOs's are in their actors' docstrings.
+
+The trainer puts the step's dropout seed in the batch as 'rng_seed' (a
+host int); the actors of nets with dropout seed their own generator on the
+net's device with it, so a resumed run draws the same masks.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
+from pytracking_tpu_torch.models.loss.bbr_loss import giou_loss
 from pytracking_tpu_torch.models.loss.kl_regression import kl_regression, kl_regression_grid
 from pytracking_tpu_torch.models.loss.target_classification import (
     lbhinge, tracking_classification_accuracy)
@@ -99,3 +106,81 @@ class KLDiMPActor:
             loss_clf = loss_clf + w["test_iter_clf"] * torch.stack(clf[1:-1]).mean()
         loss = w["bb_ce"] * bb_ce + loss_clf
         return loss, {"Loss/total": loss, "Loss/bb_ce": bb_ce, "Loss/target_clf": clf[-1]}
+
+
+class _DropoutActor:
+    """An actor whose net draws dropout masks in train mode: a generator on
+    the net's device, seeded per step with the batch's 'rng_seed' (0
+    without one). Seeding a device generator is a host-side state change:
+    no synchronisation."""
+
+    def __init__(self, net):
+        self.net = net
+        self._generator: Optional[torch.Generator] = None
+
+    def generator(self, batch: Dict[str, torch.Tensor]) -> torch.Generator:
+        device = next(self.net.parameters()).device
+        if self._generator is None or self._generator.device != device:
+            self._generator = torch.Generator(device=device)
+        self._generator.manual_seed(int(batch.get("rng_seed", 0)))
+        return self._generator
+
+
+class ToMPActor(_DropoutActor):
+    """ToMP's objective: GIoU of the dense box predictions over the test
+    positions where all four target LTRB distances are positive (inside the
+    box; weight 1), plus LBHinge of the test scores on the Gaussian labels
+    (weight 100). Batch: train_images (Ntr, S, 3, H, W), test_images (Nte,
+    S, 3, H, W), train_label (Ntr, S, h, w), train_ltrb_target (Ntr, S, h,
+    w, 4), test_label (Nte, S, h, w), test_ltrb_target (Nte, S, h, w, 4).
+    The stats, under the JAX names: Loss/total, Loss/giou, Loss/target_clf
+    (unweighted) and ClfTrain/test_acc."""
+
+    def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None):
+        super().__init__(net)
+        self.loss_weight = loss_weight or {"bb_ce": 0.01, "giou": 1.0, "test_clf": 100.0}
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        scores, bbox_preds = self.net(batch["train_images"], batch["test_images"],
+                                      batch["train_label"], batch["train_ltrb_target"],
+                                      generator=self.generator(batch))
+        target_ltrb = batch["test_ltrb_target"]
+        inside = torch.all(target_ltrb > 0, dim=-1)
+        loss_giou = giou_loss(bbox_preds.movedim(2, -1), target_ltrb, inside)
+        loss_clf = lbhinge(scores, batch["test_label"])
+        w = self.loss_weight
+        loss = w["giou"] * loss_giou + w["test_clf"] * loss_clf
+        acc = tracking_classification_accuracy(scores, batch["test_label"])
+        return loss, {"Loss/total": loss, "Loss/giou": loss_giou, "Loss/target_clf": loss_clf,
+                      "ClfTrain/test_acc": acc}
+
+
+class TaMOsActor(_DropoutActor):
+    """TaMOs's objective: GIoU of every slot's dense box predictions over its
+    test sample region (weight 1), plus LBHinge of the slots' test scores
+    (weight 100) with every slot whose label never exceeds 0.05 in a frame
+    masked out (scores and labels zeroed). Batch: train_images (Ntr, S, 3,
+    H, W), test_images (Nte, S, 3, H, W), train_label (Ntr, S, K, h, w),
+    train_ltrb_target (Ntr, S, K, h, w, 4), test_label and
+    test_sample_region (Nte, S, 2h, 2w, K), test_ltrb_target (Nte, S, 2h,
+    2w, K, 4). The stats: Loss/total, Loss/giou, Loss/target_clf
+    (unweighted)."""
+
+    def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None):
+        super().__init__(net)
+        self.loss_weight = loss_weight or {"giou": 1.0, "test_clf": 100.0}
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        scores, bbox_preds = self.net(batch["train_images"], batch["test_images"],
+                                      batch["train_label"], batch["train_ltrb_target"],
+                                      generator=self.generator(batch))
+        scores = scores.movedim(2, -1)                         # (Nte, S, 2h, 2w, K)
+        bbox_preds = bbox_preds.permute(0, 1, 4, 5, 2, 3)      # (Nte, S, 2h, 2w, K, 4)
+        loss_giou = giou_loss(bbox_preds, batch["test_ltrb_target"],
+                              batch["test_sample_region"])
+        label = batch["test_label"]
+        active = (label.amax(dim=(2, 3), keepdim=True) > 0.05).to(scores.dtype)
+        loss_clf = lbhinge(scores * active, label * active)
+        w = self.loss_weight
+        loss = w["giou"] * loss_giou + w["test_clf"] * loss_clf
+        return loss, {"Loss/total": loss, "Loss/giou": loss_giou, "Loss/target_clf": loss_clf}

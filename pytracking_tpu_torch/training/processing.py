@@ -1,7 +1,7 @@
 """Per-sample processing of the training data pipeline: jitter, crop,
 resize, labels and proposals (counterpart of
 pytracking_tpu/training/processing.py `BaseProcessing`, `DiMPProcessing`,
-`ATOMProcessing`, `KLDiMPProcessing`).
+`ATOMProcessing`, `KLDiMPProcessing`, `ToMPProcessing`, `TaMOsProcessing`).
 Host-side numpy; the result is a dict of fixed-shape float32 arrays. The
 random draws come from the generators the sampler passes in.
 """
@@ -59,10 +59,11 @@ class DiMPProcessing(BaseProcessing):
         jittered_center = box[0:2] + 0.5 * box[2:4] + max_offset * (np_rng.rand(2) - 0.5)
         return np.concatenate([jittered_center - 0.5 * jittered_size, jittered_size])
 
-    def _generate_label_function(self, target_bb: np.ndarray):
+    def _generate_label_function(self, target_bb: np.ndarray, feature_sz=None):
         p = self.label_function_params
         return prutils.gaussian_label_function(
-            target_bb, p["sigma_factor"], p["kernel_sz"], p["feature_sz"], self.output_sz,
+            target_bb, p["sigma_factor"], p["kernel_sz"],
+            feature_sz if feature_sz is not None else p["feature_sz"], self.output_sz,
             end_pad_if_even=p.get("end_pad_if_even", True))
 
     def _crops(self, data: dict, rng: random.Random, np_rng: np.random.RandomState) -> dict:
@@ -113,6 +114,42 @@ class DiMPProcessing(BaseProcessing):
 class ATOMProcessing(DiMPProcessing):
     """ATOM's processing: DiMP's, given no label parameters (proposals
     only)."""
+
+
+def _encode_ltrb(box: np.ndarray, output_sz: int, stride: int) -> np.ndarray:
+    """The dense LTRB map of a crop-coordinate box on the feature grid of
+    `stride` (cell centres at stride * i + stride / 2): (sz, sz, 4)
+    distances to the box's left, top, right and bottom edges over
+    output_sz, sz = output_sz // stride."""
+    sz = output_sz // stride
+    loc = np.arange(0, output_sz, stride, np.float32) + stride / 2
+    xs = loc[None, :]
+    ys = loc[:, None]
+    x1, y1, w, h = [float(v) for v in box]
+    l = xs - x1
+    t = ys - y1
+    r = (x1 + w) - xs
+    b = (y1 + h) - ys
+    l, t, r, b = [np.broadcast_to(v, (sz, sz)) for v in (l, t, r, b)]
+    return np.stack([l, t, r, b], axis=-1) / output_sz
+
+
+class ToMPProcessing(DiMPProcessing):
+    """ToMP's processing: DiMP's crops and Gaussian labels, and for every
+    train and test frame the dense LTRB map of its box
+    ('train_ltrb_target', 'test_ltrb_target', (h, w, 4)) at the label
+    parameters' stride (16 by default)."""
+
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        data = super().__call__(data, rng, np_rng)
+        stride = self.label_function_params.get("stride", 16) \
+            if self.label_function_params else 16
+        for s in ("train", "test"):
+            data[s + "_ltrb_target"] = [
+                _encode_ltrb(np.asarray(a, np.float32), self.output_sz, stride)
+                for a in data[s + "_anno"]]
+        return data
 
 
 class KLDiMPProcessing(DiMPProcessing):
@@ -169,4 +206,84 @@ class KLDiMPProcessing(DiMPProcessing):
                 for a in data["test_anno"]]
             data["train_label"] = [self._generate_label_function(a[None])[0]
                                    for a in data["train_anno"]]
+        return data
+
+
+class TaMOsProcessing(ToMPProcessing):
+    """TaMOs's multi-object processing. Annotations are per-frame {obj_id:
+    box} dicts (a bare box is {0: box}). Each frame is cropped once, around
+    the jittered box of its lowest object id, and every object's box is
+    carried into that crop; the split's transform changes the crops only
+    (the boxes stay as cropped, as in the JAX package: no joint transform,
+    and a flip moves no label). Object id k < num_objects fills slot k of
+    the fixed slots; the other slots stay zero. Train frames get slot-first
+    Gaussian labels 'train_label' (K, h, w) and LTRB maps
+    'train_ltrb_target' (K, h, w, 4) on the label parameters' grid (stride
+    16); test frames get slot-last 'test_label' (2h, 2w, K),
+    'test_ltrb_target' (2h, 2w, K, 4) and 'test_sample_region' (2h, 2w, K),
+    1 where a cell centre lies inside the box, on the stride_high grid (8).
+    'train_anno' / 'test_anno' become the crop-coordinate dicts."""
+
+    def __init__(self, *args, num_objects: int = 3, stride_high: int = 8, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.num_objects = num_objects
+        self.stride_high = stride_high
+
+    def _crop_multi(self, images, annos, mode, np_rng):
+        crops, out_annos = [], []
+        crop_sz = np.array([self.output_sz, self.output_sz], np.float32)
+        for im, a in zip(images, annos):
+            anchor = self._get_jittered_box(np.asarray(a[min(a.keys())], np.float32), mode,
+                                            np_rng)
+            crop, rf = prutils.sample_target(np.asarray(im), anchor, self.search_area_factor,
+                                             self.output_sz)
+            crops.append(np.asarray(crop, np.float32))
+            out_annos.append({k: prutils.transform_image_to_crop(
+                np.asarray(b, np.float32), anchor, rf, crop_sz) for k, b in a.items()})
+        return crops, out_annos
+
+    def _slots(self, a: dict, feature_sz: int, stride: int, k_last: bool):
+        """One frame's {obj_id: box} -> (labels, LTRB maps, sample regions)
+        in the K slots."""
+        K = self.num_objects
+        lbl = np.zeros((K, feature_sz, feature_sz), np.float32)
+        ltrb = np.zeros((K, feature_sz, feature_sz, 4), np.float32)
+        region = np.zeros((K, feature_sz, feature_sz), np.float32)
+        for oid, box in a.items():
+            if oid >= K:
+                continue
+            box = np.asarray(box, np.float32)
+            lbl[oid] = self._generate_label_function(box[None], feature_sz=feature_sz)[0]
+            ltrb[oid] = _encode_ltrb(box, self.output_sz, stride)
+            x, y, w, h = [float(v) for v in box]
+            cs = (np.arange(feature_sz) + 0.5) * stride
+            region[oid] = ((cs[:, None] >= y) & (cs[:, None] <= y + h)
+                           & (cs[None, :] >= x) & (cs[None, :] <= x + w)).astype(np.float32)
+        if k_last:
+            return lbl.transpose(1, 2, 0), ltrb.transpose(1, 2, 0, 3), region.transpose(1, 2, 0)
+        return lbl, ltrb, region
+
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        for s in ("train", "test"):
+            data[s + "_anno"] = [a if isinstance(a, dict) else {0: np.asarray(a, np.float32)}
+                                 for a in data[s + "_anno"]]
+        for s in ("train", "test"):
+            crops, annos = self._crop_multi(data[s + "_images"], data[s + "_anno"], s, np_rng)
+            imgs, _ = self.transform[s](image=crops, bbox=[list(a.values())[0] for a in annos],
+                                        joint=False, rng=rng, np_rng=np_rng)
+            data[s + "_images"] = [np.asarray(c, np.float32) for c in imgs]
+            data[s + "_anno"] = annos
+
+        p = self.label_function_params or {}
+        stride = p.get("stride", 16)
+        sz_lo = self.output_sz // stride
+        sz_hi = self.output_sz // self.stride_high
+        train = [self._slots(a, sz_lo, stride, k_last=False) for a in data["train_anno"]]
+        data["train_label"] = [t[0] for t in train]
+        data["train_ltrb_target"] = [t[1] for t in train]
+        test = [self._slots(a, sz_hi, self.stride_high, k_last=True) for a in data["test_anno"]]
+        data["test_label"] = [t[0] for t in test]
+        data["test_ltrb_target"] = [t[1] for t in test]
+        data["test_sample_region"] = [t[2] for t in test]
         return data

@@ -1,6 +1,6 @@
 """Training sample sampler: dataset -> sequence -> train and test frames
 (counterpart of pytracking_tpu/training/sampler.py `TrackingSampler`,
-`DiMPSampler`, `ATOMSampler`): causal or interval frame sampling within
+`DiMPSampler`, `ATOMSampler`, `TaMOsDatasetSampler`): causal or interval frame sampling within
 max_gap under the visibility constraints.
 
 The sampler owns its random generators, a `random.Random` and a
@@ -150,3 +150,61 @@ class ATOMSampler(TrackingSampler):
         super().__init__(datasets, p_datasets, samples_per_epoch, max_gap,
                          num_test_frames=1, num_train_frames=1, processing=processing,
                          frame_sample_mode=frame_sample_mode, seed=seed)
+
+
+class TaMOsDatasetSampler(TrackingSampler):
+    """TaMOs's multi-object sampler: a sequence with enough frames where
+    some object is visible (visibility may be per frame or per (frame,
+    object)), one visible base frame as the train frame and the test frames
+    after it within max_gap (the base frame again where none is visible);
+    an image dataset gives frame 0 to both. Annotations become per-frame
+    {obj_id: box} dicts, {0: box} for a single-object dataset, for
+    TaMOsProcessing; 'is_mot' says whether the dataset is a multi-object
+    one."""
+
+    def __getitem__(self, index: int) -> dict:
+        rng = self.rng
+        dataset = rng.choices(self.datasets, self.p_datasets)[0]
+        is_video = dataset.is_video_sequence()
+        is_mot = getattr(dataset, "is_mot_dataset", lambda: False)()
+
+        for _ in range(100):
+            seq_id = rng.randint(0, dataset.get_num_sequences() - 1)
+            info = dataset.get_sequence_info(seq_id)
+            visible = info.get("visible")
+            if visible is None:
+                visible = np.ones(len(info["bbox"]), bool)
+            visible = np.asarray(visible)
+            if visible.ndim == 2:
+                visible = visible.any(axis=1)
+            if not is_video or (visible.sum() > 2 * (self.num_train_frames +
+                                                     self.num_test_frames)
+                                and len(visible) >= 20):
+                break
+
+        if is_video:
+            base = self._sample_visible_ids(visible, 1, self.num_train_frames - 1,
+                                            len(visible) - self.num_test_frames)
+            base = [0] if base is None else base
+            train_ids = base
+            test_ids = self._sample_visible_ids(visible, self.num_test_frames, base[0] + 1,
+                                                base[0] + self.max_gap) \
+                or base * self.num_test_frames
+        else:
+            train_ids = [0] * self.num_train_frames
+            test_ids = [0] * self.num_test_frames
+
+        train_frames, train_anno, _ = dataset.get_frames(seq_id, train_ids, info)
+        test_frames, test_anno, _ = dataset.get_frames(seq_id, test_ids, info)
+
+        def to_dicts(anno):
+            return [{int(k): np.asarray(v, np.float32) for k, v in a.items()}
+                    if isinstance(a, dict) else {0: np.asarray(a, np.float32)}
+                    for a in anno["bbox"]]
+
+        data = {"train_images": train_frames, "train_anno": to_dicts(train_anno),
+                "test_images": test_frames, "test_anno": to_dicts(test_anno),
+                "dataset": dataset.get_name(), "is_mot": is_mot}
+        if self.processing is not None:
+            data = self.processing(data, self.rng, self.np_rng)
+        return data

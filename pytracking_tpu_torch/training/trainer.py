@@ -6,7 +6,9 @@ The hot loop takes a frame-major numpy batch from the loader, uploads it
 from pinned memory without blocking (images NHWC -> NCHW on the device)
 and runs one train step (parallel/mesh.make_train_step), whose stats
 readback is the step's one host synchronisation; `train_recipe` is the
-run every recipe makes of it. A checkpoint is
+run every recipe makes of it. Each step's batch carries 'rng_seed', epoch *
+1_000_003 + step (the JAX trainer's), which seeds the dropout masks of the
+actors whose nets draw them (ToMP, TaMOs): a resumed run draws the same. A checkpoint is
 `torch.save` of {'net', 'optimizer', 'scheduler', 'epoch'}, written to
 `epNNNN.ckpt.tmp` and renamed with `os.replace`; it is loaded only with
 `torch.load(weights_only=True)`.
@@ -19,7 +21,7 @@ import json
 import os
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,15 +35,15 @@ IMAGE_KEYS = ("train_images", "test_images")
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """A loader's batch -> device tensors (arrays only), uploaded from
-    pinned memory without blocking on a card; the images go NHWC -> NCHW
-    on the device."""
+    """A loader's batch -> device tensors (numeric arrays only), uploaded
+    from pinned memory without blocking on a card; the images go NHWC ->
+    NCHW on the device."""
     device = torch.device(device)
     pin = device.type == "cuda"
     out = {}
     for k, v in batch.items():
-        if not isinstance(v, np.ndarray):
-            continue
+        if not isinstance(v, np.ndarray) or v.dtype == object:
+            continue            # strings, and TaMOs's per-frame {obj_id: box} dicts
         t = torch.from_numpy(np.ascontiguousarray(v))
         if pin:
             t = t.pin_memory()
@@ -191,6 +193,7 @@ class LTRTrainer(BaseTrainer):
         for i, batch in enumerate(loader, 1):
             t1 = time.perf_counter()
             batch = batch_to_device(batch, self.device)
+            batch["rng_seed"] = self.epoch * 1_000_003 + i
             t_up = time.perf_counter()
             if loader.training:
                 loss, stats = self._train_step(batch)
@@ -222,11 +225,14 @@ class LTRTrainer(BaseTrainer):
 
 
 def train_recipe(settings, sampler, net, actor, base_lr: float, module_lrs: Dict[str, float],
-                 max_epochs: int, device, freeze_unlisted: bool = False) -> "LTRTrainer":
+                 max_epochs: int, device, freeze_unlisted: bool = False,
+                 milestones: Optional[Sequence[int]] = None,
+                 weight_decay: Optional[float] = None) -> "LTRTrainer":
     """A recipe's training run: `net` on `device`, `actor(net)` on batches of
     settings.batch_size from `sampler` (settings.num_workers loader
     threads), Adam per module (training/optim.adam_per_module, decayed by 0.2
-    every 15 epochs), and an LTRTrainer that resumes from the latest
+    every 15 epochs, or at the `milestones` epochs; AdamW with
+    `weight_decay`), and an LTRTrainer that resumes from the latest
     checkpoint under settings.checkpoint_dir and restarts after a failure.
     Returns the trainer after max_epochs."""
     loader = LTRLoader("train", sampler, training=True, batch_size=settings.batch_size,
@@ -234,7 +240,9 @@ def train_recipe(settings, sampler, net, actor, base_lr: float, module_lrs: Dict
     net = net.to(device)
     optimizer, scheduler = adam_per_module(net, base_lr, module_lrs,
                                            steps_per_epoch=len(loader), step_size=15,
-                                           gamma=0.2, freeze_unlisted=freeze_unlisted)
+                                           gamma=0.2, milestones=milestones,
+                                           weight_decay=weight_decay,
+                                           freeze_unlisted=freeze_unlisted)
     trainer = LTRTrainer(actor(net), [loader], optimizer, settings, settings.checkpoint_dir,
                          scheduler=scheduler, device=device,
                          print_interval=settings.print_interval)

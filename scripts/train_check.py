@@ -4,13 +4,18 @@ phases), per recipe.
 
     python3 scripts/train_check.py gate [module name] [runs] [sequences ...]
     python3 scripts/train_check.py train [module name]
+    python3 scripts/train_check.py dropout
+
+Several commands run in one process when joined by '+', e.g.
+`gate tomp tomp50 1 + train tamos tamos_resnet50 + dropout`.
 
 The recipe is named as `run_training` names it (train_settings/<module>/
 <name>.py; dimp dimp50 by default).
 
 gate: chip_smoke.py's `train_gate` figures for the recipe (dimp dimp50:
 `train_gate`; dimp prdimp50: `train_prdimp_gate`; bbreg atom:
-`train_atom_gate`; any recipe with `make_actor`): one train step of the
+`train_atom_gate`; tomp tomp50: `train_tomp_gate`; tamos tamos_resnet50:
+`train_tamos_gate`; any recipe with `make_actor`): one train step of the
 recipe's seeded net on the card and on the CPU from equal weights and one
 batch of the recipe's pipeline of each given number of sequences, `runs`
 times (3) in one process, nothing gated: the loss, the gradient leaves (the
@@ -20,8 +25,11 @@ float32 rounding alone moves them): to set the gate's bounds from.
 
 train: chip_smoke.py's training phase of the recipe alone (dimp dimp50:
 `train_dimp50`; dimp prdimp50: `train_prdimp50`; bbreg atom: `train_atom`;
-any other recipe: one epoch of chip_smoke.TRAIN_SAMPLES sequences with
-`train_prdimp50`'s checks and figures).
+tomp tomp50: `train_tomp50`; tamos tamos_resnet50: `train_tamos`; any
+other recipe: one epoch of chip_smoke.TRAIN_SAMPLES sequences with
+`train_prdimp50`'s checks and figures, ToMP's and TaMOs's with theirs).
+
+dropout: chip_smoke.py's `train_dropout`.
 """
 
 import os
@@ -51,7 +59,9 @@ def _report(tag, f):
 
 PHASES = {("dimp", "dimp50"): chip_smoke.phase_train_dimp50,
           ("dimp", "prdimp50"): chip_smoke.phase_train_prdimp50,
-          ("bbreg", "atom"): chip_smoke.phase_train_atom}
+          ("bbreg", "atom"): chip_smoke.phase_train_atom,
+          ("tomp", "tomp50"): chip_smoke.phase_train_tomp50,
+          ("tamos", "tamos_resnet50"): chip_smoke.phase_train_tamos}
 
 
 def _recipe_arg(args):
@@ -84,15 +94,29 @@ def train(args):
         PHASES[recipe]()
         return
     tag = f"train_{recipe[1]}"
+    if recipe[0] in ("tomp", "tamos"):
+        chip_smoke._train_transformer_phase(tag, *recipe)
+        return
     trainer, _, peak, _ = chip_smoke._train_recipe_run(tag, *recipe, chip_smoke.TRAIN_SAMPLES)
     chip_smoke._moved_parameters(tag, trainer, *recipe)
     chip_smoke._step_report(tag, (trainer,), peak)
     chip_smoke._profile_train_step(tag, trainer)
 
 
+def dropout(args):
+    chip_smoke.phase_train_dropout()
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("train_check: needs a CUDA card")
     chip_smoke.phase_device()
-    mode = sys.argv[1] if len(sys.argv) > 1 else "gate"
-    {"gate": gate, "train": train}[mode](sys.argv[2:])
+    commands, cmd = [], []
+    for a in sys.argv[1:] + ["+"]:
+        if a == "+":
+            commands.append(cmd or ["gate"])
+            cmd = []
+        else:
+            cmd.append(a)
+    for mode, *args in commands:
+        {"gate": gate, "train": train, "dropout": dropout}[mode](args)

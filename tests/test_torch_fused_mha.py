@@ -148,8 +148,9 @@ def test_build_digest_covers_every_source_file_and_the_flags(tmp_path, monkeypat
                                             (255, 255, 32, False), (10, 256, 32, False),
                                             (256, 256, 16, False)])
 def test_attention_routes_to_kernel_only_where_it_is_built(monkeypatch, Lq, Lk, D, fused):
-    """Self-attention with L >= 256 and a head dim the kernel is built for
-    goes through fused_self_attention; everything else is plain attention."""
+    """In eval mode with autograd off (as the trackers run), self-attention
+    with L >= 256 and a head dim the kernel is built for goes through
+    fused_self_attention; everything else is plain attention."""
     from pytracking_tpu_torch.models.transformer import transformer
 
     calls = []
@@ -160,13 +161,33 @@ def test_attention_routes_to_kernel_only_where_it_is_built(monkeypatch, Lq, Lk, 
 
     monkeypatch.setattr(transformer, "fused_self_attention", recorder)
     H = 2
-    mha = transformer.MultiheadAttention(H * D, H)
+    mha = transformer.MultiheadAttention(H * D, H).eval()
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, Lq, H * D, generator=g)
     kv = torch.randn(1, Lk, H * D, generator=g)
-    out = mha(q, kv, kv)
+    with torch.inference_mode():
+        out = mha(q, kv, kv)
     assert out.shape == (1, Lq, H * D) and bool(torch.isfinite(out).all())
     assert calls == ([(1, Lq, H, D)] if fused else [])
+
+
+def test_attention_in_train_mode_takes_the_plain_route(monkeypatch):
+    """Train mode never takes the kernel, which has no backward: a
+    kernel-shaped self-attention (L 256, D 32) with autograd on goes through
+    the plain attention, and its projections get gradients."""
+    from pytracking_tpu_torch.models.transformer import transformer
+
+    calls = []
+    monkeypatch.setattr(transformer, "fused_self_attention",
+                        lambda *a, **k: calls.append(1) or fused_mha.fused_self_attention(*a, **k))
+    H, D, L = 2, 32, 256
+    mha = transformer.MultiheadAttention(H * D, H).train()
+    mha.dropout = 0.0                      # the routing alone; dropout has its own tests
+    q = torch.randn(1, L, H * D, generator=torch.Generator().manual_seed(0))
+    out = mha(q, q, q)
+    out.square().mean().backward()
+    assert calls == []
+    assert all(float(getattr(mha, n).weight.grad.abs().max()) > 0 for n in ("query", "key"))
 
 
 def _card_masks(B, L, rng):

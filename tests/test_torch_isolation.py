@@ -262,7 +262,8 @@ def test_harness_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 TRAIN_RECIPES = (("dimp", "dimp50"), ("dimp", "dimp18"), ("dimp", "prdimp50"),
                  ("dimp", "prdimp18"), ("dimp", "super_dimp"), ("dimp", "super_dimp_simple"),
                  ("bbreg", "atom"), ("bbreg", "atom_paper"), ("bbreg", "atom_prob_ml"),
-                 ("bbreg", "atom_gmm_sampl"))
+                 ("bbreg", "atom_gmm_sampl"), ("tomp", "tomp50"), ("tomp", "tomp101"),
+                 ("tamos", "tamos_resnet50"), ("tamos", "tamos_swin_base"))
 
 
 def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):

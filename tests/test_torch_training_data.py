@@ -381,3 +381,189 @@ def test_loader_raises_a_worker_failure():
 
     with pytest.raises(ValueError, match="bad sample"):
         list(TLTRLoader("train", Broken(), batch_size=2, num_workers=2))
+
+
+# ---- ToMP and TaMOs
+
+def _tomp_processing(module, tfm, output_sz=96):
+    return module.ToMPProcessing(
+        search_area_factor=5.0, output_sz=output_sz,
+        center_jitter_factor={"train": 3, "test": 4.5},
+        scale_jitter_factor={"train": 0.25, "test": 0.5},
+        label_function_params={"feature_sz": output_sz // 16, "sigma_factor": 0.05,
+                               "kernel_sz": 1, "stride": 16},
+        train_transform=tfm.Transform(tfm.BrightnessJitter(0.2), tfm.RandomHorizontalFlip(0.5)),
+        joint_transform=tfm.Transform(tfm.ToGrayscale(0.3)))
+
+
+def test_tomp_processing_matches_jax():
+    """ToMPProcessing: DiMP's crops and labels plus the dense LTRB maps of
+    every train and test frame, bit for bit on the same draws."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    ims, boxes = _images(4, n=3, H=120, W=160), _boxes(4, n=3)
+    for seed in range(3):
+        data = lambda: {"train_images": list(ims[:2]), "train_anno": list(boxes[:2]),
+                        "test_images": list(ims[2:]), "test_anno": list(boxes[2:]),
+                        "dataset": "d"}
+        gens = _gens(seed)
+        ref = _tomp_processing(j_processing, j_tfm)(data())
+        got = _tomp_processing(t_processing, t_tfm)(data(), gens["rng"], gens["np_rng"])
+        assert got["train_ltrb_target"][0].shape == (6, 6, 4)
+        _equal(got, ref)
+    box = np.array([20.5, 30.0, 17.0, 9.0], np.float32)
+    _equal(t_processing._encode_ltrb(box, 96, 16), j_processing._encode_ltrb(box, 96, 16))
+
+
+class _MOTDataset:
+    """Two sequences of 40 frames with 2 or 4 objects as {obj_id: box}
+    dicts, visibility per (frame, object), object 1 invisible in frames
+    0-9; ids 0, 1, 3, 5 (5 lies beyond 3 slots, 3 beyond 2)."""
+
+    def __len__(self):
+        return 2
+
+    def get_name(self):
+        return "mot"
+
+    def is_video_sequence(self):
+        return True
+
+    def is_mot_dataset(self):
+        return True
+
+    def get_num_sequences(self):
+        return 2
+
+    def get_sequence_info(self, seq_id):
+        ids = (0, 1) if seq_id == 0 else (0, 1, 3, 5)
+        boxes = [{k: np.array([20.0 + 25 * i + t, 18.0 + 9 * i, 20 + 2 * i, 16 + i], np.float32)
+                  for i, k in enumerate(ids)} for t in range(40)]
+        visible = np.ones((40, len(ids)), bool)
+        visible[:10, 1] = False
+        return {"visible": visible, "bbox": boxes}
+
+    def get_frames(self, seq_id, ids, info):
+        frames = [np.full((120, 160, 3), 60 + 5 * i, np.uint8) for i in ids]
+        for f, i in zip(frames, ids):
+            for k, b in info["bbox"][i].items():
+                x, y, w, h = [int(v) for v in b]
+                f[y:y + h, x:x + w] = 100 + 30 * k
+        return frames, {"bbox": [info["bbox"][i] for i in ids]}, None
+
+
+class _SingleObjectImages:
+    """An image dataset of bare (x, y, w, h) boxes: {0: box} per frame."""
+
+    def __len__(self):
+        return 3
+
+    def get_name(self):
+        return "images"
+
+    def is_video_sequence(self):
+        return False
+
+    def get_num_sequences(self):
+        return 3
+
+    def get_sequence_info(self, seq_id):
+        return {"bbox": [np.array([30.0 + seq_id, 25.0, 24.0, 20.0], np.float32)]}
+
+    def get_frames(self, seq_id, ids, info):
+        frames = [np.full((100, 140, 3), 90 + seq_id, np.uint8) for _ in ids]
+        return frames, {"bbox": [info["bbox"][i] for i in ids]}, None
+
+
+def _tamos_processing(module, tfm, K=3, output_sz=128):
+    return module.TaMOsProcessing(
+        search_area_factor=5.0, output_sz=output_sz,
+        center_jitter_factor={"train": 3, "test": 4.5},
+        scale_jitter_factor={"train": 0.25, "test": 0.5},
+        label_function_params={"feature_sz": output_sz // 16, "sigma_factor": 0.05,
+                               "kernel_sz": 1, "stride": 16},
+        num_objects=K, stride_high=8,
+        train_transform=tfm.Transform(tfm.BrightnessJitter(0.2), tfm.RandomHorizontalFlip(0.5)),
+        joint_transform=tfm.Transform(tfm.ToGrayscale(0.3)))
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_tamos_processing_matches_jax(K):
+    """TaMOsProcessing on {obj_id: box} frames (ids beyond the K slots
+    dropped) and on bare boxes: the crops around each frame's jittered
+    lowest id, the crop-coordinate dicts, the slot-first train labels and
+    LTRB maps, the slot-last test labels, LTRB maps and sample regions at
+    stride 8, bit for bit on the same draws."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    ds = _MOTDataset()
+    info = ds.get_sequence_info(1)
+    frames, anno, _ = ds.get_frames(1, [12, 30], info)
+    for seed in range(2):
+        data = lambda: {"train_images": frames[:1], "train_anno": anno["bbox"][:1],
+                        "test_images": frames[1:], "test_anno": [anno["bbox"][1]],
+                        "dataset": "mot"}
+        gens = _gens(seed)
+        ref = _tamos_processing(j_processing, j_tfm, K)(data())
+        got = _tamos_processing(t_processing, t_tfm, K)(data(), gens["rng"], gens["np_rng"])
+        assert got["train_label"][0].shape == (K, 8, 8)
+        assert got["test_sample_region"][0].shape == (16, 16, K)
+        assert got["train_label"][0][1].max() > 0.01     # object 1 reached its slot
+        _equal(got, ref)
+    bare = {"train_images": frames[:1], "train_anno": [np.array([30.0, 20, 22, 18])],
+            "test_images": frames[1:], "test_anno": [np.array([34.0, 22, 22, 18])]}
+    gens = _gens(9)
+    ref = _tamos_processing(j_processing, j_tfm, K)(dict(bare))
+    got = _tamos_processing(t_processing, t_tfm, K)(dict(bare), gens["rng"], gens["np_rng"])
+    _equal(got, ref)
+    assert not got["test_label"][0][..., 1:].any()
+
+
+def test_tamos_sampler_matches_jax():
+    """TaMOsDatasetSampler over a multi-object video dataset (visibility
+    per frame and object) and a single-object image dataset, both with the
+    TaMOs processing: samples 0-5 bit for bit on one seed, 'is_mot' and the
+    {obj_id: box} dicts included; then the loader's collation of the
+    dict-valued annotations and the flag as the JAX _stack_dim1 gives it,
+    and the upload leaving them on the host. The twin of
+    tests/test_data_pipeline_round2.py's TaMOs test."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu.training.loader import _stack_dim1
+    from pytracking_tpu.training.sampler import TaMOsDatasetSampler as JSampler
+    from pytracking_tpu_torch.training import processing as t_processing
+    from pytracking_tpu_torch.training.sampler import TaMOsDatasetSampler as TSampler
+    from pytracking_tpu_torch.training.trainer import batch_to_device
+
+    datasets = [_MOTDataset(), _SingleObjectImages()]
+    j = JSampler(datasets, p_datasets=[2, 1], samples_per_epoch=6, max_gap=10,
+                 num_test_frames=1, num_train_frames=1,
+                 processing=_tamos_processing(j_processing, j_tfm))
+    t = TSampler(datasets, p_datasets=[2, 1], samples_per_epoch=6, max_gap=10,
+                 num_test_frames=1, num_train_frames=1,
+                 processing=_tamos_processing(t_processing, t_tfm), seed=21)
+    random.seed(21)
+    np.random.seed(21)
+    jt = [j[i] for i in range(6)]
+    tt = [t[i] for i in range(6)]
+    for a, b in zip(tt, jt):
+        _equal(a, b)
+    assert {s["dataset"] for s in tt} == {"mot", "images"}
+    assert any(s["is_mot"] for s in tt) and not all(s["is_mot"] for s in tt)
+    got, ref = t_stack_dim1(tt[:3]), _stack_dim1(jt[:3])
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        if isinstance(ref[k], np.ndarray) and ref[k].dtype == object:
+            assert got[k].shape == ref[k].shape
+            for x, y in zip(got[k].ravel(), ref[k].ravel()):
+                _equal(x, y)
+        else:
+            _equal(got[k], ref[k])
+    assert got["train_anno"].dtype == object and got["is_mot"].dtype == bool
+    up = batch_to_device(got, "cpu")
+    assert "train_anno" not in up and "test_anno" not in up and "dataset" not in up
+    assert up["test_label"].shape == (1, 3, 16, 16, 3) and up["train_images"].shape[2] == 3
