@@ -25,7 +25,7 @@ Phases (any failure exits non-zero and prints no result line):
               not-found threshold DIMP_NOT_FOUND_THRESHOLD; no Pallas kernel
               on this path: cuDNN convolutions, cuBLAS matmuls, autograd):
               `initialize` on the synthetic 480x640
-              frame, then `track` over 110 frames of a moving target; finite
+              frame, then `track` over 60 frames of a moving target; finite
               outputs, frame times (all, and the periodic-refit frames),
               the flag histogram and the host synchronisations per frame;
   8. dimp_gate  the same weights, seed and draws through `initialize` + 10
@@ -38,7 +38,7 @@ Phases (any failure exits non-zero and prints no result line):
               (no Pallas kernel on these paths either): SuperDiMP (DiMP-50's
               net, 352x352 'inside_major' samples, 10 relative-space
               refinement steps) and PrDiMP-50 (KL/Newton refit, softmax
-              scores) over 110 frames, DiMP-18 and SuperDiMP-simple (the
+              scores) over 60 frames, DiMP-18 and SuperDiMP-simple (the
               generic Gauss-Newton refit by torch.func) over 40; each at its
               own not-found threshold (*_NOT_FOUND_THRESHOLD);
  11. *_gate   `dimp_gate` for each of the four over 5 frames;
@@ -168,7 +168,7 @@ Phases (any failure exits non-zero and prints no result line):
               proposals, the recipe's synthetic data and per-module Adam,
               IEEE float32; no Pallas kernel on this path: cuDNN and cuBLAS
               forward and backward, autograd) in an empty workspace under
-              .chip_scratch/train/: epoch 1 (12 steps), then a second call
+              .chip_scratch/train/: epoch 1 (6 steps), then a second call
               that resumes from ep0001.ckpt and trains epoch 2; finite
               losses, moved parameters, both checkpoints, no fail-safe
               restart, one host synchronisation per step, K1 not launched;
@@ -182,7 +182,7 @@ Phases (any failure exits non-zero and prints no result line):
               `run_training("dimp", "prdimp50")` at full width (8 sequences
               x 3 + 3 frames at 288x288, 128 mixture proposals per test
               frame, the KL objective on the IoU-Net and on every Newton
-              iterate), one epoch of 12 steps: finite losses, every
+              iterate), one epoch of 6 steps: finite losses, every
               parameter moved, the checkpoint, no restart, one host
               synchronisation per step after the first, K1 not launched;
               ms per step, sequences/s, the loader's wait, the upload, peak
@@ -197,6 +197,28 @@ Phases (any failure exits non-zero and prints no result line):
               ms per step and peak memory;
  35. train_prdimp_gate, train_atom_gate  `train_gate` for PrDiMP-50 and
               ATOM (4 sequences each, the TRAIN_* bounds).
+ 36. train_tomp50, train_tamos  ToMP-50 and TaMOs-ResNet50 training (an
+              epoch of 6 steps each; dropout on, the backbone's BatchNorms
+              frozen); train_recipes also runs tomp101 and tamos_swin_base;
+              train_tomp_gate, train_tamos_gate (dropout 0, 4 sequences);
+              train_dropout (ToMP-50's step twice on one dropout seed, bit
+              for bit).
+ 37. train_lwl  LWL stage 2 through `run_training("lwl", "lwl_stage2")` at
+              full width (8 sequences x 1 + 3 frames at 352x352 with their
+              masks, the backbone frozen with its BatchNorms in train mode,
+              the target model refined twice after each test frame and
+              trained through its steepest-descent steps, the Lovász hinge),
+              an epoch of 12 steps: the checks of train_prdimp50, the
+              backbone's weights bit for bit and its running statistics
+              moved; train_recipes also runs lwl_stage1 and lwl_boxinit;
+ 38. train_rts  RTS-50 through `run_training("rts", "rts50")` (8
+              sequences, masks and the classifier's labels; the backbone from
+              layer2 on trained), as train_lwl;
+ 39. train_lwl_gate, train_rts_gate  `train_gate` for LWL stage 2 and
+              RTS-50 (4 sequences each, TRAIN_LWL_GATE_BOUNDS /
+              TRAIN_RTS_GATE_BOUNDS).
+Each phase's wall time is printed as `phase <tag>: <seconds> s` when it
+ends.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
 the script changes no precision setting outside the kernel comparison.
 The line before the last is a JSON object listing each kernel; the last line
@@ -229,6 +251,7 @@ K1_KERNEL = "mha_fwd"                # both of K1's kernels' names start so
 TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
                                     # of 24x36 tokens), heads, head dim
 N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
+DIMP_FRAMES = 60                     # DiMP-50, SuperDiMP, PrDiMP-50: refits at 20 and 40
 SHORT_FRAMES = 40                    # DiMP-18 and SuperDiMP-simple
 WARMUP_FRAMES = 5
 DIMP_GATE_FRAMES = 10
@@ -361,10 +384,11 @@ TOMP = {"tomp50": ("ToMP-50", TOMP_NOT_FOUND_THRESHOLD, TOMP_CONF_THS,
                     TOMP101_DISTRACTOR_THRESHOLD, SHORT_FRAMES, False)}
 # parameter module: (label, package, not-found threshold, frames, gate px)
 DIMP_FAMILY = {
-    "dimp50": ("DiMP-50", "dimp", DIMP_NOT_FOUND_THRESHOLD, N_FRAMES, DIMP_GATE_PX),
-    "super_dimp": ("SuperDiMP", "dimp", SUPERDIMP_NOT_FOUND_THRESHOLD, N_FRAMES,
+    "dimp50": ("DiMP-50", "dimp", DIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES, DIMP_GATE_PX),
+    "super_dimp": ("SuperDiMP", "dimp", SUPERDIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES,
                    RELATIVE_GATE_PX),
-    "prdimp50": ("PrDiMP-50", "dimp", PRDIMP_NOT_FOUND_THRESHOLD, N_FRAMES, RELATIVE_GATE_PX),
+    "prdimp50": ("PrDiMP-50", "dimp", PRDIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES,
+                 RELATIVE_GATE_PX),
     "dimp18": ("DiMP-18", "dimp", DIMP18_NOT_FOUND_THRESHOLD, SHORT_FRAMES, DIMP_GATE_PX),
     "super_dimp_simple": ("SuperDiMP-simple", "dimp_simple",
                           SUPERDIMP_SIMPLE_NOT_FOUND_THRESHOLD, SHORT_FRAMES, RELATIVE_GATE_PX),
@@ -398,12 +422,22 @@ def cuda_time_ms(fn, iters=50, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+    if res.returncode != 0:
+        return f"nvidia-smi failed: {res.stderr}"
+    return res.stdout.strip().splitlines()[0]
+
+
 def phase_device():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
-    card = res.stdout.strip().splitlines()[0]
+    card = _card()
+    check(not card.startswith("nvidia-smi failed"), card)
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
@@ -784,7 +818,7 @@ def dimp_spec(name, device="cuda", **kw):
 
 def phase_dimp(name="dimp50", tag="dimp", require_flags=()):
     """A DiMP-family tracker at full width on the card: initialize + its
-    frames (110 or 40), then 10 more with the host synchronisations counted.
+    frames (60 or 40), then 10 more with the host synchronisations counted.
     Fails unless every frame synchronises once and, for the names given in
     `require_flags`, those flags and a refit occur."""
     from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker
@@ -2898,7 +2932,8 @@ def phase_harness_pool(tag="harness_pool"):
 
 # ---------------------------------------------------------------- training
 
-TRAIN_SAMPLES = 96                   # per epoch: 12 steps of Settings.batch_size (8)
+TRAIN_SAMPLES = 48                   # per epoch: 6 steps of Settings.batch_size (8)
+TRAIN_VOS_SAMPLES = 96               # train_lwl, train_rts: 12 steps
 TRAIN_TIMED_FROM = 2                 # the median step time skips each run's first 2 steps
 # train_gate: card against CPU after one step from equal weights, both IEEE
 # float32, on 4 sequences of the recipe's pipeline (seed 0). With 2, the
@@ -3235,9 +3270,12 @@ def _zero_grad_scale(n, ref):
     if n.count(".") < 2:
         return None
     block, layer, leaf = n.rsplit(".", 2)
-    if leaf == "bias" and layer in ("Conv_0", "Dense_0") \
-            and f"{block}.BatchNorm_0.running_mean" in ref["state"]:
-        # DiMP's and ATOM's bias before a train-mode BatchNorm
+    if leaf == "bias" and not n.startswith("clf_encoder.") and (
+            layer in ("Conv_0", "Dense_0") and f"{block}.BatchNorm_0.running_mean" in ref["state"]
+            or layer == "bb0" and f"{block}.bn.running_mean" in ref["state"]):
+        # a bias before a train-mode BatchNorm: DiMP's, ATOM's, the LWL
+        # label encoders' conv blocks, the LWL decoder's refinement blocks
+        # (RTS's score encoder runs its BatchNorms in eval mode)
         return float(ref["grads"][f"{block}.{layer}.weight"].abs().max())
     kind = _transformer_exact_zero(n)
     if kind == "block":
@@ -3353,7 +3391,7 @@ TRAIN_RECIPE_STEPS = 3               # steps of each recipe in train_recipes
 TRAIN_RECIPES = (("dimp", "dimp18"), ("dimp", "prdimp18"), ("dimp", "super_dimp"),
                  ("dimp", "super_dimp_simple"), ("bbreg", "atom_paper"),
                  ("bbreg", "atom_prob_ml"), ("bbreg", "atom_gmm_sampl"), ("tomp", "tomp101"),
-                 ("tamos", "tamos_swin_base"))
+                 ("tamos", "tamos_swin_base"), ("lwl", "lwl_stage1"), ("lwl", "lwl_boxinit"))
 
 
 def _train_recipe_run(tag, module, name, samples):
@@ -3393,7 +3431,7 @@ def _train_recipe_run(tag, module, name, samples):
 
 def _moved_parameters(tag, trainer, module, name, reached=False):
     """Every parameter the recipe trains (requires_grad; ResNet's layer4,
-    which DiMP's nets never run, left out) moved from the recipe's seeded
+    which only LWL's and RTS's nets run, left out of the others) moved from the recipe's seeded
     net, and no other; returns the seeded net's state_dict. With `reached`
     (ToMP, TaMOs), a trained parameter whose last step's gradient is 0 (the
     first decoder layer's self-attention sees targets that start at 0; the
@@ -3401,8 +3439,9 @@ def _moved_parameters(tag, trainer, module, name, reached=False):
     seeded = _recipe(module, name).make_net(trainer.settings, "cuda").state_dict()
     params = dict(trainer.net.named_parameters())
     moved = {n for n, p in params.items() if not torch.equal(p, seeded[n])}
+    runs_layer4 = module in ("lwl", "rts")           # the segmentation decoders read it
     trained = {n for n, p in params.items()
-               if p.requires_grad and not n.startswith("feature_extractor.layer4")}
+               if p.requires_grad and (runs_layer4 or not n.startswith("feature_extractor.layer4"))}
     if reached:
         static = {n for n in trained - moved
                   if params[n].grad is None or not bool(params[n].grad.any())}
@@ -3486,22 +3525,28 @@ def phase_train_atom(tag="train_atom"):
 
 
 def phase_train_recipes(tag="train_recipes"):
-    """The other recipes of the DiMP family and ATOM through `run_training`
-    at full width, TRAIN_RECIPE_STEPS steps each: DiMP-18 (DiMP-50's recipe
-    on ResNet-18), PrDiMP-18, SuperDiMP and SuperDiMP-simple (PrDiMP's
-    objective at 352x352; DiMP's Gauss-Newton and the generic one by
-    torch.func), ATOM at the paper's operating point, ATOM prob-ML and its
-    GMM-sampling twin (the KL objective on 128 mixture proposals): the
-    checks of _train_recipe_run and every trained parameter moved; ms per
-    step after the first and peak memory. Returns K1's launches over them."""
+    """The other recipes through `run_training` at full width,
+    TRAIN_RECIPE_STEPS steps each: DiMP-18 (DiMP-50's recipe on ResNet-18),
+    PrDiMP-18, SuperDiMP and SuperDiMP-simple (PrDiMP's objective at
+    352x352; DiMP's Gauss-Newton and the generic one by torch.func), ATOM at
+    the paper's operating point, ATOM prob-ML and its GMM-sampling twin (the
+    KL objective on 128 mixture proposals), ToMP-101, TaMOs-SwinBase, LWL
+    stage 1 (no refinement) and LWL box-init (the box label encoder alone):
+    the checks of _train_recipe_run and every trained parameter with a
+    gradient moved; ms per step after the first and peak memory. Returns
+    K1's launches over them."""
     k1 = 0
     for module, name in TRAIN_RECIPES:
         sub = f"{tag}/{name}"
         trainer, seconds, peak, n = _train_recipe_run(
             sub, module, name, TRAIN_RECIPE_STEPS * 8)
         k1 += n
-        _moved_parameters(sub, trainer, module, name, reached=module in ("tomp", "tamos"))
+        seeded = _moved_parameters(sub, trainer, module, name,
+                                   reached=module in ("tomp", "tamos", "lwl"))
         _step_report(sub, (trainer,), peak, first=1)
+        if module == "lwl":
+            _frozen_backbone_report(sub, trainer, seeded)
+            print(f"{sub}: on {_card()}", flush=True)
         del trainer
         torch.cuda.empty_cache()
     return k1
@@ -3657,6 +3702,116 @@ def phase_train_dropout(tag="train_dropout", device="cuda"):
     return k1
 
 
+# ------------------------------------------------ training: LWL and RTS
+
+# train_lwl_gate / train_rts_gate: card against CPU after one step, 4
+# sequences of the recipe's pipeline (peak device memory 2.06 and 4.18 GiB,
+# 11.7 and 13.4 s with the CPU's half), each bound about ten times the
+# larger of the card against the CPU and the card against itself at 3e-7
+# (scripts/train_check.py gate lwl lwl_stage2 1 + gate rts rts50 1; NVIDIA
+# H100 80GB HBM3, 700.00 W), the two readings beside each. The synthetic
+# frames' flat regions put ReLU inputs on their kink, so rounding alone moves
+# single leaves by 7% (LWL's decoder at layer4) and 23% (RTS's trained
+# backbone at layer4): RTS's worst-leaf bound checks nothing, and its gate
+# rests on the loss terms, the running statistics, the median leaf and
+# Adam's step. RTS's loss terms differ most (inferred: the classifier's
+# branch, whose fallback train labels each device computes itself, so the
+# hinge's target mask, label > 0.05, can flip where exp rounds either way;
+# the card against itself computes the same labels twice).
+TRAIN_LWL_GATE_BOUNDS = {"loss": 3e-5,           # 1.07e-7; 2.14e-6
+                         "stats": 3e-5,          # 2.26e-6; 2.72e-6
+                         "grad": 0.75,           # 7.32e-2; 7.28e-2
+                         "grad_median": 5e-2,    # 2.90e-3; 4.42e-3
+                         "step_share": 5e-2}     # 0.411%; 0.454%
+TRAIN_RTS_GATE_BOUNDS = {"loss": 1e-2,           # 9.86e-4; 6.45e-5
+                         "stats": 1e-4,          # 1.06e-5; 2.72e-6
+                         "grad": 2.5,            # 0.153; 0.233
+                         "grad_median": 0.2,     # 2.06e-2; 2.00e-2
+                         "step_share": 8e-2}     # 0.690%; 0.741%
+
+
+def _frozen_backbone_report(tag, trainer, seeded, frozen=("feature_extractor.",)):
+    """The backbone's frozen weights bit for bit the seeded ones, exactly
+    the backbone parameters under the `frozen` prefixes out of training
+    (the whole backbone by default), and every backbone running statistic
+    moved: its BatchNorms run in train mode under frozen weights, as in the
+    JAX recipes."""
+    state = trainer.net.state_dict()
+    params = dict(trainer.net.named_parameters())
+    backbone = [k for k in params if k.startswith("feature_extractor.")]
+    stats = [k for k in state if k.startswith("feature_extractor.")
+             and k.endswith(("running_mean", "running_var"))]
+    fixed = [k for k in backbone if not params[k].requires_grad]
+    check(fixed == [k for k in backbone if k.startswith(frozen)],
+          f"{tag}: frozen backbone parameters {fixed[:3]}..., expected those under {frozen}")
+    check(all(torch.equal(state[k], seeded[k]) for k in fixed),
+          f"{tag}: frozen backbone weights changed: "
+          f"{[k for k in fixed if not torch.equal(state[k], seeded[k])][:5]}")
+    moved = [k for k in stats if not torch.equal(state[k], seeded[k])]
+    check(len(moved) == len(stats), f"{tag}: backbone running statistics not moved: "
+          f"{sorted(set(stats) - set(moved))[:5]}")
+    print(f"{tag}: {len(fixed)} frozen backbone weight tensors bit for bit the seeded ones; "
+          f"all {len(stats)} backbone running statistics moved (BatchNorm in train mode)",
+          flush=True)
+
+
+def _train_vos_phase(tag, module, name, frozen=("feature_extractor.",)):
+    """LWL's or RTS's training through `run_training(module, name)` at full
+    width on the recipe's synthetic data (SyntheticVOSVideoDataset, masks
+    through the pipeline): one epoch of TRAIN_VOS_SAMPLES sequences;
+    _train_recipe_run's checks (finite losses, the checkpoint, one host
+    synchronisation per step after the first, K1 0), every trained
+    parameter with a gradient moved and no other, the frozen backbone
+    weights bit for bit and its running statistics moved; ms per step,
+    sequences/s, peak memory, the card, and a profiled step."""
+    trainer, _, peak, k1 = _train_recipe_run(tag, module, name, TRAIN_VOS_SAMPLES)
+    seeded = _moved_parameters(tag, trainer, module, name, reached=True)
+    _frozen_backbone_report(tag, trainer, seeded, frozen)
+    median = _step_report(tag, (trainer,), peak)
+    print(f"{tag}: {name} at {trainer.settings.output_sz}x{trainer.settings.output_sz}, "
+          f"{median:.2f} ms per step, peak device memory {peak / 2 ** 30:.2f} GiB on {_card()}",
+          flush=True)
+    _profile_train_step(tag, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_train_lwl(tag="train_lwl"):
+    """LWL stage 2 (8 sequences x 1 train + 3 test frames at 352x352 with
+    masks, the maskrcnn ResNet-50 frozen with its BatchNorms in train mode,
+    a causal refinement of 2 steepest-descent steps after each test frame
+    but the last, differentiated through, the Lovász hinge, per-module Adam
+    on the target model, decoder and label encoder): _train_vos_phase."""
+    return _train_vos_phase(tag, "lwl", "lwl_stage2")
+
+
+def phase_train_rts(tag="train_rts"):
+    """RTS-50 (8 sequences x 1 + 3 frames at 352x352 with masks and the
+    classifier's labels; every sequence decoded with its own encoded scores;
+    the backbone trained from layer2 on): _train_vos_phase."""
+    return _train_vos_phase(tag, "rts", "rts50", frozen=(
+        "feature_extractor.conv1", "feature_extractor.bn1", "feature_extractor.layer1_"))
+
+
+class PhaseClock:
+    """Wall time per phase of `main`: each call ends the running phase,
+    printing `phase <tag>: <seconds> s`, and starts the one it names
+    (None starts none). Returns the new tag."""
+
+    def __init__(self):
+        self.tag, self.t0 = None, 0.0
+        self.seconds = {}
+
+    def __call__(self, tag):
+        now = time.perf_counter()
+        if self.tag is not None:
+            self.seconds[self.tag] = now - self.t0
+            print(f"phase {self.tag}: {now - self.t0:.1f} s", flush=True)
+        self.tag, self.t0 = tag, now
+        return tag
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -3668,26 +3823,27 @@ def main():
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phase = "device"
+    at = PhaseClock()
+    phase = at("device")
     try:
         phase_device()
-        phase = "build"
+        phase = at("build")
         phase_build()
-        phase = "kernels"
+        phase = at("kernels")
         kernel, main_keep = phase_kernels()
-        phase = "main"
+        phase = at("main")
         spec, tracker, launches, main_median = phase_main(main_keep)
         kernel["launches"] = launches
         kernel["launches_by_path"] = {"tamos_r50": launches}
-        phase = "gate"
+        phase = at("gate")
         phase_gate(spec)
-        phase = "profile"
+        phase = at("profile")
         phase_profile(tracker)
-        phase = "dimp"
+        phase = at("dimp")
         dimp, dimp_tracker, dimp_median = phase_dimp()
-        phase = "dimp_gate"
+        phase = at("dimp_gate")
         phase_dimp_gate(dimp)
-        phase = "dimp_profile"
+        phase = at("dimp_profile")
         bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
         t_next = dimp_tracker.state.frame_num
         phase_profile(dimp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
@@ -3698,180 +3854,192 @@ def main():
                                  ("prdimp50", "prdimp", ("hard_negative",)),
                                  ("dimp18", "dimp18", ()),
                                  ("super_dimp_simple", "superdimp_simple", ())):
-            phase = tag
+            phase = at(tag)
             family[tag] = phase_dimp(name, tag, require_flags=flags)
-            phase = f"{tag}_gate"
+            phase = at(f"{tag}_gate")
             phase_dimp_gate(family[tag][0], tag=phase, n_frames=FAMILY_GATE_FRAMES,
                             limit_px=DIMP_FAMILY[name][4])
             if tag != "superdimp":
                 del family[tag]          # frees the card for the next net
-        phase = "superdimp_profile"
+        phase = at("superdimp_profile")
         tracker = family["superdimp"][1]
         t_next = tracker.state.frame_num
         phase_profile(tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                       tag="superdimp_profile")
         del family, tracker
-        phase = "tomp"
+        phase = at("tomp")
         tomp_spec32, tomp_tracker = phase_tomp("tomp50", "tomp")
-        phase = "tomp_gate"
+        phase = at("tomp_gate")
         phase_tomp_gate(tomp_spec32)
-        phase = "tomp_bf16_gate"
+        phase = at("tomp_bf16_gate")
         phase_tomp_bf16_gate(tomp_spec32)
-        phase = "tomp_profile"
+        phase = at("tomp_profile")
         t_next = tomp_tracker.state.frame_num
         phase_profile(tomp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                       tag="tomp_profile")
         del tomp_spec32, tomp_tracker
-        phase = "tomp101"
+        phase = at("tomp101")
         phase_tomp("tomp101", "tomp101")
-        phase = "tamos_swin"
+        phase = at("tamos_swin")
         swin_spec, swin_tracker, swin_launches, _ = phase_main(
             main_keep, module="tamos_swin_base", tag="tamos_swin", label="TaMOs-SwinBase")
         kernel["launches"] = launches + swin_launches
         kernel["launches_by_path"] = {"tamos_r50": launches, "tamos_swin": swin_launches}
-        phase = "tamos_swin_gate"
+        phase = at("tamos_swin_gate")
         from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_swin_base
         phase_gate(swin_spec, tamosnet_swin_base, tag="tamos_swin_gate")
-        phase = "tamos_swin_profile"
+        phase = at("tamos_swin_profile")
         phase_profile(swin_tracker, tag="tamos_swin_profile")
         del swin_spec, swin_tracker
-        phase = "kys"
+        phase = at("kys")
         kys, kys_tracker, kernel["launches_by_path"]["kys"] = phase_kys()
-        phase = "kys_gate"
+        phase = at("kys_gate")
         from pytracking_tpu_torch.trackers.kys import KYSTracker
         phase_dimp_gate(kys, tag=phase, n_frames=FAMILY_GATE_FRAMES, limit_px=DIMP_GATE_PX,
                         tracker_cls=KYSTracker, compare=kys_compare)
-        phase = "kys_profile"
+        phase = at("kys_profile")
         t_next = kys_tracker.state.frame_num
         check(phase_profile(kys_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                             tag=phase) == 0, "K1 launched on the KYS path under the profiler")
         del kys, kys_tracker
-        phase = "keep_track"
+        phase = at("keep_track")
         kt, kt_tracker, kernel["launches_by_path"]["keep_track"] = phase_keep_track()
-        phase = "keep_track_gate"
+        phase = at("keep_track_gate")
         from pytracking_tpu_torch.trackers.keep_track import KeepTrackTracker
         phase_dimp_gate(kt, tag=phase, n_frames=FAMILY_GATE_FRAMES, limit_px=RELATIVE_GATE_PX,
                         tracker_cls=KeepTrackTracker, compare=keep_track_compare)
-        phase = "keep_track_profile"
+        phase = at("keep_track_profile")
         t_next = kt_tracker.state.frame_num
         check(phase_profile(kt_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                             tag=phase) == 0, "K1 launched on the KeepTrack path under the profiler")
         del kt, kt_tracker
-        phase = "keep_track_fast"
+        phase = at("keep_track_fast")
         phase_keep_track("default_fast", phase, SHORT_FRAMES, full_checks=False)
         vos_bg = vos_background()
-        phase = "lwl"
+        phase = at("lwl")
         lwl_spec, lwl_tracker, kernel["launches_by_path"]["lwl"] = phase_lwl()
-        phase = "lwl_gate"
+        phase = at("lwl_gate")
         phase_lwl_gate(lwl_spec)
-        phase = "lwl_bf16_gate"
+        phase = at("lwl_bf16_gate")
         phase_lwl_bf16_gate(lwl_spec)
-        phase = "lwl_profile"
+        phase = at("lwl_profile")
         t_next = lwl_tracker.state.frame_num
         check(phase_profile(lwl_tracker, [vos_frame(vos_bg, t)[0]
                                           for t in range(t_next, t_next + 3)], tag=phase) == 0,
               "K1 launched on the LWL path under the profiler")
         del lwl_tracker
-        phase = "lwl_multi"
+        phase = at("lwl_multi")
         kernel["launches_by_path"]["lwl_multi"] = phase_lwl_multi(lwl_spec)
         del lwl_spec
-        phase = "lwl_boxinit"
+        phase = at("lwl_boxinit")
         phase_lwl_boxinit()
-        phase = "rts"
+        phase = at("rts")
         rts_spec, rts_tracker, kernel["launches_by_path"]["rts"], rts_events = phase_rts()
-        phase = "rts_gate"
+        phase = at("rts_gate")
         phase_rts_gate(rts_spec, rts_tracker, rts_events)
-        phase = "rts_profile"
+        phase = at("rts_profile")
         t_next = rts_tracker.state.frame_num
         check(phase_profile(rts_tracker, [vos_frame(vos_bg, t)[0]
                                           for t in range(t_next, t_next + 3)], tag=phase) == 0,
               "K1 launched on the RTS path under the profiler")
         del rts_spec, rts_tracker
-        phase = "atom"
+        phase = at("atom")
         atom, atom_tracker, kernel["launches_by_path"]["atom"] = phase_atom()
-        phase = "atom_gate"
+        phase = at("atom_gate")
         phase_atom_gate(atom)
-        phase = "atom_profile"
+        phase = at("atom_profile")
         t_next = atom_tracker.state.frame_num
         check(phase_profile(atom_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                             tag=phase) == 0, "K1 launched on the ATOM path under the profiler")
         del atom, atom_tracker
         for module, tag in (("atom_prob_ml", "atom_prob_ml"), ("default_vot", "atom_vot"),
                             ("multiscale_no_iounet", "atom_multiscale")):
-            phase = tag
+            phase = at(tag)
             phase_atom(module, tag, ATOM_SHORT_FRAMES, SHORT_SYNC_FRAMES)
-        phase = "eco"
+        phase = at("eco")
         eco, eco_tracker, kernel["launches_by_path"]["eco"] = phase_eco()
-        phase = "eco_gate"
+        phase = at("eco_gate")
         phase_eco_gate(eco)
-        phase = "eco_profile"
+        phase = at("eco_profile")
         t_next = eco_tracker.state.frame_num
         check(phase_profile(eco_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
                             tag=phase) == 0, "K1 launched on the ECO path under the profiler")
         del eco_tracker
-        phase = "eco_mobile3"
+        phase = at("eco_mobile3")
         phase_eco("mobile3", phase, ATOM_SHORT_FRAMES, SHORT_SYNC_FRAMES)
-        phase = "dimp_bf16_gate"
+        phase = at("dimp_bf16_gate")
         from pytracking_tpu_torch.trackers.dimp import DiMPTracker
         from pytracking_tpu_torch.trackers.eco import ECOTracker
         phase_bf16_score_gate(phase, DiMPTracker, dimp_spec("dimp50"),
                               dimp_spec("dimp50", dtype=torch.bfloat16), "_localize_streams")
-        phase = "eco_bf16_gate"
+        phase = at("eco_bf16_gate")
         phase_bf16_score_gate(phase, ECOTracker, eco, eco_spec("default",
                                                                backbone_dtype=torch.bfloat16),
                               "_score_maps", wrap=True)
         del eco
-        phase = "serving"
+        phase = at("serving")
         kernel["launches_by_path"]["serving"] = phase_serving(dimp_median)
-        phase = "serving_gate"
+        phase = at("serving_gate")
         phase_serving_gate()
-        phase = "serving_superdimp"
+        phase = at("serving_superdimp")
         kernel["launches_by_path"]["serving_superdimp"] = phase_serving_superdimp()
-        phase = "serving_bf16_gate"
+        phase = at("serving_bf16_gate")
         phase_serving_bf16_gate()
-        phase = "harness_entry"
+        phase = at("harness_entry")
         phase_harness_entry()
-        phase = "harness_dimp"
+        phase = at("harness_dimp")
         phase_harness_dimp(dimp_median)
-        phase = "harness_tamos"
+        phase = at("harness_tamos")
         kernel["launches_by_path"]["harness_tamos"] = phase_harness_tamos(main_median)
-        phase = "harness_vos"
+        phase = at("harness_vos")
         phase_harness_vos()
-        phase = "harness_bf16_gate"
+        phase = at("harness_bf16_gate")
         phase_harness_bf16_gate()
-        phase = "harness_pool"
+        phase = at("harness_pool")
         phase_harness_pool()
-        phase = "train_dimp50"
+        phase = at("train_dimp50")
         kernel["launches_by_path"]["train_dimp50"] = phase_train_dimp50()
-        phase = "train_gate"
+        phase = at("train_gate")
         kernel["launches_by_path"]["train_gate"] = phase_train_gate()
-        phase = "train_prdimp50"
+        phase = at("train_prdimp50")
         kernel["launches_by_path"]["train_prdimp50"] = phase_train_prdimp50()
-        phase = "train_atom"
+        phase = at("train_atom")
         kernel["launches_by_path"]["train_atom"] = phase_train_atom()
-        phase = "train_recipes"
+        phase = at("train_recipes")
         kernel["launches_by_path"]["train_recipes"] = phase_train_recipes()
-        phase = "train_prdimp_gate"
+        phase = at("train_prdimp_gate")
         kernel["launches_by_path"]["train_prdimp_gate"] = phase_train_gate(
             phase, ("dimp", "prdimp50"))
-        phase = "train_atom_gate"
+        phase = at("train_atom_gate")
         kernel["launches_by_path"]["train_atom_gate"] = phase_train_gate(
             phase, ("bbreg", "atom"), TRAIN_ATOM_GATE_BOUNDS)
-        phase = "train_tomp50"
+        phase = at("train_tomp50")
         kernel["launches_by_path"]["train_tomp50"] = phase_train_tomp50()
-        phase = "train_tamos"
+        phase = at("train_tamos")
         kernel["launches_by_path"]["train_tamos"] = phase_train_tamos()
-        phase = "train_tomp_gate"
+        phase = at("train_tomp_gate")
         kernel["launches_by_path"]["train_tomp_gate"] = phase_train_gate(
             phase, ("tomp", "tomp50"), TRAIN_TOMP_GATE_BOUNDS)
-        phase = "train_tamos_gate"
+        phase = at("train_tamos_gate")
         kernel["launches_by_path"]["train_tamos_gate"] = phase_train_gate(
             phase, ("tamos", "tamos_resnet50"), TRAIN_TAMOS_GATE_BOUNDS)
-        phase = "train_dropout"
+        phase = at("train_dropout")
         kernel["launches_by_path"]["train_dropout"] = phase_train_dropout()
+        phase = at("train_lwl")
+        kernel["launches_by_path"]["train_lwl"] = phase_train_lwl()
+        phase = at("train_rts")
+        kernel["launches_by_path"]["train_rts"] = phase_train_rts()
+        phase = at("train_lwl_gate")
+        kernel["launches_by_path"]["train_lwl_gate"] = phase_train_gate(
+            phase, ("lwl", "lwl_stage2"), TRAIN_LWL_GATE_BOUNDS)
+        phase = at("train_rts_gate")
+        kernel["launches_by_path"]["train_rts_gate"] = phase_train_gate(
+            phase, ("rts", "rts50"), TRAIN_RTS_GATE_BOUNDS)
     except Exception as e:  # report which phase failed, then fail the run
+        at(None)
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)
         raise
+    at(None)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -1,7 +1,8 @@
 """The LWL network: backbone, few-shot target model, label encoder and
 segmentation decoder (counterpart of pytracking_tpu/models/lwl/lwl_net.py:
 `LWTLNet`, `steepest_descent_resnet50`, `LWTLBoxNet`,
-`steepest_descent_resnet50_boxinit`; the tracking-time methods).
+`steepest_descent_resnet50_boxinit`; the tracking-time methods and the
+training forwards `LWTLNet.forward` and `LWTLBoxNet.box_forward`).
 
 The tracker calls the parts one by one. Images are (B, 3, H, W) in 0-255;
 the S axis of the target model's (N, S, ...) tensors is the object axis of
@@ -74,6 +75,54 @@ class LWTLNet(nn.Module):
         enc = self.target_model.apply_target_model(filt, test_feat_tm)
         return self._decode(enc, backbone_feat, image_size), enc
 
+    def _frames_features(self, imgs: torch.Tensor):
+        """Frames (N, Ns, 3, H, W) -> (backbone features by layer, each (N,
+        Ns, C, h, w); target-model features (N, Ns, C, h, w)): one backbone
+        call, so one BatchNorm batch in train mode."""
+        N, Ns = imgs.shape[:2]
+        bb = self.extract_backbone(imgs.flatten(0, 1))
+        tm = self.extract_target_model_features(bb)
+        return ({k: v.reshape((N, Ns) + v.shape[1:]) for k, v in bb.items()},
+                tm.reshape((N, Ns) + tm.shape[1:]))
+
+    def forward(self, train_imgs: torch.Tensor, test_imgs: torch.Tensor,
+                train_masks: torch.Tensor, num_refinement_iter: int = 2) -> torch.Tensor:
+        """The training forward: the target model learnt on the train
+        frames, then the test frames in order, each one's mask predicted and,
+        with `num_refinement_iter` > 0, encoded from its (detached)
+        probabilities and added to the learner's memory, which refines the
+        model by that many steps before the next frame. The memory has Ntr +
+        Nte slots throughout, those past the current frame with zero weight.
+        Train and test frames go through the backbone in separate calls (two
+        BatchNorm batches in train mode), the test frames through the
+        decoder one at a time. train_imgs (Ntr, Ns, 3, H, W), test_imgs
+        (Nte, Ns, 3, H, W) in 0-255, train_masks (Ntr, Ns, H, W). Returns mask
+        logits (Nte, Ns, H, W)."""
+        Nte = test_imgs.shape[0]
+        image_size = tuple(train_imgs.shape[-2:])
+        _, tr_tm = self._frames_features(train_imgs)
+        te_bb, te_tm = self._frames_features(test_imgs)
+        label, sw = self.label_encoder(train_masks, tr_tm)
+        filt = self.target_model.get_filter(tr_tm, label, sw)
+
+        mem = {"feat": [tr_tm], "label": [label], "sw": [sw]}
+        masks = []
+        for i in range(Nte):
+            feat_i = te_tm[i:i + 1]
+            enc = self.target_model.apply_target_model(filt, feat_i)
+            mask = self._decode(enc, {k: v[i] for k, v in te_bb.items()}, image_size)
+            masks.append(mask)
+            if i < Nte - 1 and num_refinement_iter > 0:
+                new_label, new_sw = self.label_encoder(torch.sigmoid(mask.detach())[None],
+                                                       feat_i)
+                for key, x in (("feat", feat_i), ("label", new_label), ("sw", new_sw)):
+                    mem[key].append(x)
+                full = {k: torch.cat(v + [v[0].new_zeros((Nte - i - 1,) + v[0].shape[1:])])
+                        for k, v in mem.items()}
+                filt = self.tm_update_filter(filt, full["feat"], full["label"], full["sw"],
+                                             num_iter=num_refinement_iter)
+        return torch.stack(masks)
+
 
 class LWTLBoxNet(LWTLNet):
     """LWL with a box label encoder, so that tracking can start from a box:
@@ -86,6 +135,19 @@ class LWTLBoxNet(LWTLNet):
     def encode_box(self, bb, feat_tm, im_sz):
         """bb (Nf, Ns, 4); feat_tm (Nf, Ns, C, h, w) -> (label, sample weights)."""
         return self.box_label_encoder(bb, feat_tm, im_sz)
+
+    def box_forward(self, train_imgs: torch.Tensor, train_bb: torch.Tensor) -> torch.Tensor:
+        """The box-init training forward: the train frames' boxes encoded
+        and decoded into masks of the same frames. train_imgs (Ntr, Ns, 3, H,
+        W) in 0-255, train_bb (Ntr, Ns, 4) in crop coordinates. Returns mask
+        logits (Ntr, Ns, H, W)."""
+        Ntr, Ns = train_imgs.shape[:2]
+        image_size = tuple(train_imgs.shape[-2:])
+        bb_feat, feat_tm = self._frames_features(train_imgs)
+        label, _ = self.encode_box(train_bb, feat_tm, image_size)
+        mask = self._decode(label, {k: v.flatten(0, 1) for k, v in bb_feat.items()},
+                            image_size)
+        return mask.reshape((Ntr, Ns) + mask.shape[1:])
 
     def segment_target_from_box(self, bb, feat_tm, backbone_feat, image_size):
         """Box -> label encoding -> decoded mask logits (S, H, W), no filter."""

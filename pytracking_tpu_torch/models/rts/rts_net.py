@@ -1,7 +1,7 @@
 """The RTS network: LWL's mask branch fused with a DiMP-style instance
 classifier (counterpart of pytracking_tpu/models/rts/rts_net.py:
-`ResidualDS16SWClf`, `LearnersFusion`, `RTSNet`'s tracking-time methods,
-`rts50`).
+`ResidualDS16SWClf`, `LearnersFusion`, `RTSNet`'s tracking-time methods and
+training forward, `rts50`).
 
 The classifier's score map is encoded into the mask-encoding space
 (`ResidualDS16SWClf`), resized to the target model's grid and fused with
@@ -10,6 +10,7 @@ the mask encoding before the decoder.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -26,6 +27,7 @@ from pytracking_tpu_torch.models.layers.blocks import ConvBlock
 from pytracking_tpu_torch.models.lwl.decoder import _interp
 from pytracking_tpu_torch.models.lwl.label_encoder import SegBasicBlock, _heads
 from pytracking_tpu_torch.models.lwl.lwl_net import LWTLNet, _lwl_parts, init_weights
+from pytracking_tpu_torch.ops.dcf import gauss_2d
 from pytracking_tpu_torch.utils.device import resolve_device
 
 
@@ -74,6 +76,18 @@ class LearnersFusion(nn.Module):
         return out.reshape(x.shape[:2] + out.shape[1:])
 
 
+@contextlib.contextmanager
+def _eval_mode(module: nn.Module):
+    """`module` in eval mode inside, its own mode restored after."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, training in modes:
+            m.training = training
+
+
 class RTSNet(LWTLNet):
     """LWL's surface plus the classifier branch: `extract_classification_feat`
     (on `classification_layer`), `clf_get_filter`, `clf_classify`, and the
@@ -110,6 +124,63 @@ class RTSNet(LWTLNet):
         clf_enc = _interp(clf_enc.flatten(0, 1), enc.shape[-2:]).reshape(enc.shape)
         fused = self.fusion_module(enc, clf_enc)
         return self._decode(fused, backbone_feat, image_size), fused
+
+    def fallback_train_label(self, train_bb: torch.Tensor, grid: Tuple[int, int],
+                             image_size: Tuple[int, int]) -> torch.Tensor:
+        """Gaussian train labels for the hinge optimiser where none are
+        given: at each train box's centre on the classifier's (h, w) grid
+        (stride image_size / grid), sigma a quarter of sqrt(h * w), end-padded
+        by one cell for an even filter. train_bb (Ntr, Ns, 4) -> (Ntr, Ns,
+        h + pad, w + pad)."""
+        h, w = grid
+        ep = (self.classifier.filter_initializer.filter_size + 1) % 2
+        cx, cy = (train_bb[..., :2] + train_bb[..., 2:] / 2).reshape(-1, 2).unbind(-1)
+        # (y, x) on the grid, relative to its centre; sigma as a device
+        # tensor: no value crosses from the host
+        ctr = torch.stack([cy * (h / image_size[0]) - h / 2, cx * (w / image_size[1]) - w / 2], -1)
+        sig = torch.full_like(ctr, 0.25 * math.sqrt(h * w))
+        label = gauss_2d((h, w), sig, ctr, (ep, ep))
+        return label.reshape(train_bb.shape[:2] + label.shape[1:])
+
+    def forward(self, train_imgs: torch.Tensor, test_imgs: torch.Tensor,
+                train_masks: torch.Tensor, train_bb: torch.Tensor,
+                train_label: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training forward: the classifier fitted on the train frames
+        (to `train_label`, or to `fallback_train_label`) and its scores on
+        the test frames; the target model learnt on the train masks; then
+        each test frame's masks decoded from the mask encoding fused with
+        the encoded scores of every sequence. Train and test frames go
+        through the backbone in separate calls (two BatchNorm batches in
+        train mode), the test frames through the decoder one at a time; the
+        score encoder's BatchNorms stay in eval mode, as the JAX package
+        calls it. train_imgs (Ntr, Ns, 3, H, W), test_imgs (Nte, Ns, 3, H,
+        W) in 0-255, train_masks (Ntr, Ns, H, W), train_bb (Ntr, Ns, 4).
+        Returns (mask logits (Nte, Ns, H, W), classifier scores (Nte, Ns, 1,
+        h', w'))."""
+        image_size = tuple(train_imgs.shape[-2:])
+        tr_bb, tr_tm = self._frames_features(train_imgs)
+        te_bb, te_tm = self._frames_features(test_imgs)
+        tr_clf = self.extract_classification_feat(tr_bb)
+        te_clf = self.extract_classification_feat(te_bb)
+
+        if train_label is None:
+            train_label = self.fallback_train_label(train_bb, tuple(tr_clf.shape[-2:]),
+                                                    image_size)
+        clf_filter = self.classifier.get_filter(tr_clf, train_bb, train_label=train_label)
+        clf_scores = self.classifier.classify(clf_filter, te_clf)
+
+        label, sw = self.label_encoder(train_masks, tr_tm)
+        filt = self.target_model.get_filter(tr_tm, label, sw)
+        masks = []
+        for i in range(test_imgs.shape[0]):
+            enc = self.target_model.apply_target_model(filt, te_tm[i:i + 1])
+            with _eval_mode(self.clf_encoder):
+                clf_enc, _ = self.clf_encoder(clf_scores[i:i + 1, :, 0])
+            clf_enc = _interp(clf_enc.flatten(0, 1), enc.shape[-2:]).reshape(enc.shape)
+            fused = self.fusion_module(enc, clf_enc)
+            masks.append(self._decode(fused, {k: v[i] for k, v in te_bb.items()},
+                                      image_size))
+        return torch.stack(masks), clf_scores
 
 
 def rts50(filter_size: int = 3, num_filters: int = 16, optim_iter: int = 5,

@@ -1,7 +1,7 @@
 """Actors: the training loss on top of a net's forward (counterpart of
 pytracking_tpu/training/actors/tracking.py `make_dimp_actor`,
 `make_atom_actor`, `make_kldimp_actor`, `make_tomp_actor`,
-`make_tamos_actor`).
+`make_tamos_actor`, `make_lwl_actor`, `make_rts_actor`, `make_lwl_box_actor`).
 
 An actor is called on a batch on the device and returns (loss, stats),
 both device tensors; the train step differentiates the loss with autograd
@@ -10,8 +10,8 @@ and reads the stats back once. Batch layout, frame-major: train_images
 train_anno (Ntrain, S, 4), test_proposals (Ntest, S, P, 4), proposal_iou
 (Ntest, S, P), test_label (Ntest, S, h, w); PrDiMP's processing gives
 proposal_density and gt_density (Ntest, S, P) and test_label_density
-(Ntest, S, h, w) instead of proposal_iou and test_label. ToMP's and
-TaMOs's are in their actors' docstrings.
+(Ntest, S, h, w) instead of proposal_iou and test_label. ToMP's,
+TaMOs's and the segmentation actors' are in their docstrings.
 
 The trainer puts the step's dropout seed in the batch as 'rng_seed' (a
 host int); the actors of nets with dropout seed their own generator on the
@@ -26,6 +26,7 @@ import torch
 
 from pytracking_tpu_torch.models.loss.bbr_loss import giou_loss
 from pytracking_tpu_torch.models.loss.kl_regression import kl_regression, kl_regression_grid
+from pytracking_tpu_torch.models.loss.segmentation import lovasz_seg_loss
 from pytracking_tpu_torch.models.loss.target_classification import (
     lbhinge, tracking_classification_accuracy)
 
@@ -184,3 +185,74 @@ class TaMOsActor(_DropoutActor):
         w = self.loss_weight
         loss = w["giou"] * loss_giou + w["test_clf"] * loss_clf
         return loss, {"Loss/total": loss, "Loss/giou": loss_giou, "Loss/target_clf": loss_clf}
+
+
+class LWLActor:
+    """LWL's objective: the Lovász hinge of the test frames' predicted masks
+    (weight 100), the target model refined `num_refinement_iter` steps after
+    each test frame but the last. Batch: train_images (Ntr, S, 3, H, W),
+    test_images (Nte, S, 3, H, W), train_masks (Ntr, S, H, W), test_masks
+    (Nte, S, H, W). The stats: Loss/total and Loss/segm (the same value)."""
+
+    def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None,
+                 num_refinement_iter: int = 2):
+        self.net = net
+        self.loss_weight = loss_weight or {"segm": 100.0}
+        self.num_refinement_iter = num_refinement_iter
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        masks = self.net(batch["train_images"], batch["test_images"], batch["train_masks"],
+                         num_refinement_iter=self.num_refinement_iter)
+        loss = self.loss_weight["segm"] * lovasz_seg_loss(masks, batch["test_masks"])
+        return loss, {"Loss/total": loss, "Loss/segm": loss}
+
+
+class RTSActor:
+    """RTS's objective: the Lovász hinge of the test frames' fused masks
+    (weight 10), plus LBHinge of the classifier's test scores, cut to the
+    labels' grid, on the Gaussian labels (weight 10). Batch: train_images,
+    test_images, train_masks, test_masks as LWLActor's, train_anno (Ntr, S,
+    4), test_label (Nte, S, h, w). The stats: Loss/total, Loss/segm and
+    Loss/clf (unweighted)."""
+
+    def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None):
+        self.net = net
+        self.loss_weight = loss_weight or {"segm": 10.0, "clf": 10.0}
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        masks, clf_scores = self.net(batch["train_images"], batch["test_images"],
+                                     batch["train_masks"], batch["train_anno"])
+        loss_segm = lovasz_seg_loss(masks, batch["test_masks"])
+        label = batch["test_label"]
+        h, w = label.shape[-2:]
+        loss_clf = lbhinge(clf_scores[:, :, 0, :h, :w], label)
+        loss = self.loss_weight["segm"] * loss_segm + self.loss_weight["clf"] * loss_clf
+        return loss, {"Loss/total": loss, "Loss/segm": loss_segm, "Loss/clf": loss_clf}
+
+
+def _mask_iou(pred_logits: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Mean IoU of the masks where the logits are positive (probability
+    above 0.5) with the ground truth, (..., H, W) each; a union of 0 counts
+    as 1."""
+    p = (torch.sigmoid(pred_logits) > 0.5).to(gt.dtype)
+    inter = (p * gt).sum((-2, -1))
+    union = torch.clamp((p + gt - p * gt).sum((-2, -1)), min=1.0)
+    return (inter / union).mean()
+
+
+class LWLBoxActor:
+    """The box-init objective: masks decoded from the train frames' encoded
+    boxes, the Lovász hinge on those frames' masks (weight 10). Batch:
+    train_images (Ntr, S, 3, H, W), train_anno (Ntr, S, 4), train_masks
+    (Ntr, S, H, W). The stats: Loss/total and Stats/acc_box_train
+    (_mask_iou)."""
+
+    def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None):
+        self.net = net
+        self.loss_weight = loss_weight or {"segm_box": 10.0}
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        masks = self.net.box_forward(batch["train_images"], batch["train_anno"])
+        loss = self.loss_weight["segm_box"] * lovasz_seg_loss(masks, batch["train_masks"])
+        return loss, {"Loss/total": loss,
+                      "Stats/acc_box_train": _mask_iou(masks.detach(), batch["train_masks"])}

@@ -1,8 +1,8 @@
 """Synthetic training videos, made procedurally: a textured moving square
 per sequence (counterpart of
-pytracking_tpu/training/datasets/synthetic_video.py `SyntheticVideoDataset`),
-from the harness's renderer, so the training stack runs with no data on
-disk."""
+pytracking_tpu/training/datasets/synthetic_video.py `SyntheticVideoDataset`,
+`SyntheticVOSVideoDataset`), from the harness's renderer, so the training
+stack runs with no data on disk."""
 
 from __future__ import annotations
 
@@ -38,3 +38,24 @@ class SyntheticVideoDataset(BaseVideoDataset):
             anno = self.get_sequence_info(seq_id)
         frame_anno = {k: [v[t] for t in frame_ids] for k, v in anno.items()}
         return frames, frame_anno, {"object_class_name": "synthetic"}
+
+
+class SyntheticVOSVideoDataset(SyntheticVideoDataset):
+    """The synthetic videos with a segmentation mask per frame (the rendered
+    target square, 1 inside and 0 outside), for the LWL and RTS recipes."""
+
+    def has_segmentation_info(self) -> bool:
+        return True
+
+    def get_frames(self, seq_id: int, frame_ids: List[int], anno: Optional[dict] = None):
+        frames, frame_anno, meta = super().get_frames(seq_id, frame_ids, anno)
+        masks = []
+        for t in frame_ids:
+            cy, cx, sz = synthetic_gt_center(seq_id, t, self.H, self.W)
+            m = np.zeros((self.H, self.W), np.float32)
+            y0, y1 = int(max(cy - sz / 2, 0)), int(min(cy + sz / 2, self.H))
+            x0, x1 = int(max(cx - sz / 2, 0)), int(min(cx + sz / 2, self.W))
+            m[y0:y1, x0:x1] = 1.0
+            masks.append(m)
+        frame_anno["mask"] = masks
+        return frames, frame_anno, meta

@@ -1,7 +1,8 @@
 """Per-sample processing of the training data pipeline: jitter, crop,
 resize, labels and proposals (counterpart of
 pytracking_tpu/training/processing.py `BaseProcessing`, `DiMPProcessing`,
-`ATOMProcessing`, `KLDiMPProcessing`, `ToMPProcessing`, `TaMOsProcessing`).
+`ATOMProcessing`, `KLDiMPProcessing`, `ToMPProcessing`, `TaMOsProcessing`,
+`LWLProcessing`, `RTSProcessing`).
 Host-side numpy; the result is a dict of fixed-shape float32 arrays. The
 random draws come from the generators the sampler passes in.
 """
@@ -109,6 +110,59 @@ class DiMPProcessing(BaseProcessing):
             data["test_label"] = [self._generate_label_function(a[None])[0]
                                   for a in data["test_anno"]]
         return data
+
+
+class LWLProcessing(DiMPProcessing):
+    """LWL's processing: each frame's image and mask cropped around the
+    jittered target box (the mask by `sample_target` alike, then
+    thresholded at 0.5), the box carried into crop coordinates, and the
+    split's transform applied to the crops, boxes and masks together (a
+    flipped crop gets a flipped mask, as upstream's LWLProcessing does; the
+    JAX package's flips the image and box only). Gives train_images /
+    test_images, train_anno / test_anno, and train_masks / test_masks where
+    the data carries masks; with label parameters (RTS) also the Gaussian
+    labels train_label / test_label."""
+
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        if self.transform["joint"] is not None:
+            data["train_images"], data["train_anno"] = self.transform["joint"](
+                image=data["train_images"], bbox=data["train_anno"], rng=rng, np_rng=np_rng)
+            data["test_images"], data["test_anno"] = self.transform["joint"](
+                image=data["test_images"], bbox=data["test_anno"], joint=False, rng=rng,
+                np_rng=np_rng)
+
+        for s in ("train", "test"):
+            jittered = [self._get_jittered_box(np.asarray(a, np.float32), s, np_rng)
+                        for a in data[s + "_anno"]]
+            crops, boxes = prutils.jittered_center_crop(
+                data[s + "_images"], jittered, data[s + "_anno"],
+                self.search_area_factor, self.output_sz)
+            if s + "_masks" in data:
+                masks = [(prutils.sample_target(np.asarray(m, np.float32), j,
+                                                self.search_area_factor,
+                                                self.output_sz)[0] > 0.5).astype(np.float32)
+                         for m, j in zip(data[s + "_masks"], jittered)]
+                crops, boxes, masks = self.transform[s](image=crops, bbox=boxes, mask=masks,
+                                                        joint=False, rng=rng, np_rng=np_rng)
+                data[s + "_masks"] = [np.asarray(m, np.float32) for m in masks]
+            else:
+                crops, boxes = self.transform[s](image=crops, bbox=boxes, joint=False,
+                                                 rng=rng, np_rng=np_rng)
+            data[s + "_images"] = [np.asarray(c, np.float32) for c in crops]
+            data[s + "_anno"] = [np.asarray(b, np.float32) for b in boxes]
+
+        if self.label_function_params is not None:
+            data["train_label"] = [self._generate_label_function(a[None])[0]
+                                   for a in data["train_anno"]]
+            data["test_label"] = [self._generate_label_function(a[None])[0]
+                                  for a in data["test_anno"]]
+        return data
+
+
+class RTSProcessing(LWLProcessing):
+    """RTS's processing: LWL's, given the label parameters of the
+    classifier branch."""
 
 
 class ATOMProcessing(DiMPProcessing):

@@ -1,6 +1,7 @@
 """Training sample sampler: dataset -> sequence -> train and test frames
 (counterpart of pytracking_tpu/training/sampler.py `TrackingSampler`,
-`DiMPSampler`, `ATOMSampler`, `TaMOsDatasetSampler`): causal or interval frame sampling within
+`DiMPSampler`, `ATOMSampler`, `LWLSampler`,
+`TaMOsDatasetSampler`): causal or interval frame sampling within
 max_gap under the visibility constraints.
 
 The sampler owns its random generators, a `random.Random` and a
@@ -150,6 +151,11 @@ class ATOMSampler(TrackingSampler):
         super().__init__(datasets, p_datasets, samples_per_epoch, max_gap,
                          num_test_frames=1, num_train_frames=1, processing=processing,
                          frame_sample_mode=frame_sample_mode, seed=seed)
+
+
+class LWLSampler(TrackingSampler):
+    """LWL's and RTS's sampler: the tracking sampler's frames, with a
+    dataset's 'mask' annotation carried into train_masks / test_masks."""
 
 
 class TaMOsDatasetSampler(TrackingSampler):

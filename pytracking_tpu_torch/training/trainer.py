@@ -227,11 +227,11 @@ class LTRTrainer(BaseTrainer):
 def train_recipe(settings, sampler, net, actor, base_lr: float, module_lrs: Dict[str, float],
                  max_epochs: int, device, freeze_unlisted: bool = False,
                  milestones: Optional[Sequence[int]] = None,
-                 weight_decay: Optional[float] = None) -> "LTRTrainer":
+                 weight_decay: Optional[float] = None, step_size: int = 15) -> "LTRTrainer":
     """A recipe's training run: `net` on `device`, `actor(net)` on batches of
     settings.batch_size from `sampler` (settings.num_workers loader
     threads), Adam per module (training/optim.adam_per_module, decayed by 0.2
-    every 15 epochs, or at the `milestones` epochs; AdamW with
+    every `step_size` epochs, or at the `milestones` epochs; AdamW with
     `weight_decay`), and an LTRTrainer that resumes from the latest
     checkpoint under settings.checkpoint_dir and restarts after a failure.
     Returns the trainer after max_epochs."""
@@ -239,7 +239,7 @@ def train_recipe(settings, sampler, net, actor, base_lr: float, module_lrs: Dict
                        num_workers=settings.num_workers)
     net = net.to(device)
     optimizer, scheduler = adam_per_module(net, base_lr, module_lrs,
-                                           steps_per_epoch=len(loader), step_size=15,
+                                           steps_per_epoch=len(loader), step_size=step_size,
                                            gamma=0.2, milestones=milestones,
                                            weight_decay=weight_decay,
                                            freeze_unlisted=freeze_unlisted)

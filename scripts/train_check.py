@@ -15,25 +15,29 @@ The recipe is named as `run_training` names it (train_settings/<module>/
 gate: chip_smoke.py's `train_gate` figures for the recipe (dimp dimp50:
 `train_gate`; dimp prdimp50: `train_prdimp_gate`; bbreg atom:
 `train_atom_gate`; tomp tomp50: `train_tomp_gate`; tamos tamos_resnet50:
-`train_tamos_gate`; any recipe with `make_actor`): one train step of the
+`train_tamos_gate`; lwl lwl_stage2: `train_lwl_gate`; rts rts50:
+`train_rts_gate`; any recipe with `make_actor`): one train step of the
 recipe's seeded net on the card and on the CPU from equal weights and one
 batch of the recipe's pipeline of each given number of sequences, `runs`
 times (3) in one process, nothing gated: the loss, the gradient leaves (the
 worst six), the running statistics and Adam's step, card against CPU; then
 the card against itself with the images changed by 3e-7 relative (how far
-float32 rounding alone moves them): to set the gate's bounds from.
+float32 rounding alone moves them): to set the gate's bounds from. Each
+run also prints its seconds and the card's peak memory over it.
 
 train: chip_smoke.py's training phase of the recipe alone (dimp dimp50:
 `train_dimp50`; dimp prdimp50: `train_prdimp50`; bbreg atom: `train_atom`;
-tomp tomp50: `train_tomp50`; tamos tamos_resnet50: `train_tamos`; any
-other recipe: one epoch of chip_smoke.TRAIN_SAMPLES sequences with
-`train_prdimp50`'s checks and figures, ToMP's and TaMOs's with theirs).
+tomp tomp50: `train_tomp50`; tamos tamos_resnet50: `train_tamos`; lwl
+lwl_stage2: `train_lwl`; rts rts50: `train_rts`; any other recipe: one
+epoch of chip_smoke.TRAIN_SAMPLES sequences with `train_prdimp50`'s checks
+and figures, ToMP's, TaMOs's and LWL's with theirs).
 
 dropout: chip_smoke.py's `train_dropout`.
 """
 
 import os
 import sys
+import time
 
 import torch
 
@@ -61,7 +65,9 @@ PHASES = {("dimp", "dimp50"): chip_smoke.phase_train_dimp50,
           ("dimp", "prdimp50"): chip_smoke.phase_train_prdimp50,
           ("bbreg", "atom"): chip_smoke.phase_train_atom,
           ("tomp", "tomp50"): chip_smoke.phase_train_tomp50,
-          ("tamos", "tamos_resnet50"): chip_smoke.phase_train_tamos}
+          ("tamos", "tamos_resnet50"): chip_smoke.phase_train_tamos,
+          ("lwl", "lwl_stage2"): chip_smoke.phase_train_lwl,
+          ("rts", "rts50"): chip_smoke.phase_train_rts}
 
 
 def _recipe_arg(args):
@@ -82,10 +88,21 @@ def gate(args):
     for n in [int(a) for a in args[1:]] or [chip_smoke.TRAIN_GATE_SEQUENCES]:
         batch = chip_smoke.train_gate_batch(sequences=n, recipe=recipe)
         for r in range(runs):
-            _report(f"gate {name} {n} sequences, run {r + 1}",
-                    chip_smoke.train_gate_figures(batch, recipe))
-        _report(f"gate {name} {n} sequences, card vs card at 3e-7",
-                chip_smoke.train_gate_sensitivity(batch, recipe=recipe))
+            _timed(f"gate {name} {n} sequences, run {r + 1}",
+                   lambda: chip_smoke.train_gate_figures(batch, recipe))
+        _timed(f"gate {name} {n} sequences, card vs card at 3e-7",
+               lambda: chip_smoke.train_gate_sensitivity(batch, recipe=recipe))
+
+
+def _timed(tag, figures):
+    """_report of figures(), with its seconds and the card's peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = figures()
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    _report(tag, f)
 
 
 def train(args):
@@ -96,6 +113,9 @@ def train(args):
     tag = f"train_{recipe[1]}"
     if recipe[0] in ("tomp", "tamos"):
         chip_smoke._train_transformer_phase(tag, *recipe)
+        return
+    if recipe[0] == "lwl":
+        chip_smoke._train_vos_phase(tag, *recipe)
         return
     trainer, _, peak, _ = chip_smoke._train_recipe_run(tag, *recipe, chip_smoke.TRAIN_SAMPLES)
     chip_smoke._moved_parameters(tag, trainer, *recipe)

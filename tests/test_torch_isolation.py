@@ -263,7 +263,9 @@ TRAIN_RECIPES = (("dimp", "dimp50"), ("dimp", "dimp18"), ("dimp", "prdimp50"),
                  ("dimp", "prdimp18"), ("dimp", "super_dimp"), ("dimp", "super_dimp_simple"),
                  ("bbreg", "atom"), ("bbreg", "atom_paper"), ("bbreg", "atom_prob_ml"),
                  ("bbreg", "atom_gmm_sampl"), ("tomp", "tomp50"), ("tomp", "tomp101"),
-                 ("tamos", "tamos_resnet50"), ("tamos", "tamos_swin_base"))
+                 ("tamos", "tamos_resnet50"), ("tamos", "tamos_swin_base"),
+                 ("lwl", "lwl_stage1"), ("lwl", "lwl_stage2"), ("lwl", "lwl_boxinit"),
+                 ("rts", "rts50"))
 
 
 def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):

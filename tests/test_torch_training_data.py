@@ -567,3 +567,146 @@ def test_tamos_sampler_matches_jax():
     up = batch_to_device(got, "cpu")
     assert "train_anno" not in up and "test_anno" not in up and "dataset" not in up
     assert up["test_label"].shape == (1, 3, 16, 16, 3) and up["train_images"].shape[2] == 3
+
+
+# ---------------------------------------------------------------- LWL and RTS
+
+def test_synthetic_vos_dataset_matches_jax():
+    """SyntheticVOSVideoDataset: the sequence info, and each frame's image
+    and mask (the rendered square), bit for bit."""
+    from pytracking_tpu.training.datasets.synthetic_video import SyntheticVOSVideoDataset
+    from pytracking_tpu_torch.training.datasets.synthetic_video import \
+        SyntheticVOSVideoDataset as TSyntheticVOSVideoDataset
+
+    j, t = SyntheticVOSVideoDataset(num_sequences=3, seq_len=12), \
+        TSyntheticVOSVideoDataset(num_sequences=3, seq_len=12)
+    assert t.has_segmentation_info() and j.has_segmentation_info()
+    for seq in range(3):
+        _equal(t.get_sequence_info(seq), j.get_sequence_info(seq))
+        got, ref = t.get_frames(seq, [0, 5, 11]), j.get_frames(seq, [0, 5, 11])
+        _equal(got, ref)
+        assert all(m.any() and m.dtype == np.float32 for m in got[1]["mask"])
+
+
+def _lwl_processing(module, tfm, flip=0.5, labels=False, output_sz=96):
+    label_params = {"feature_sz": output_sz // 32, "sigma_factor": 0.05, "kernel_sz": 4} \
+        if labels else None
+    cls = module.RTSProcessing if labels else module.LWLProcessing
+    return cls(search_area_factor=5.0, output_sz=output_sz,
+               center_jitter_factor={"train": 3, "test": 4.5},
+               scale_jitter_factor={"train": 0.25, "test": 0.5},
+               label_function_params=label_params,
+               train_transform=tfm.Transform(tfm.RandomHorizontalFlip(flip)),
+               joint_transform=tfm.Transform(tfm.ToGrayscale(0.3)))
+
+
+def _masks(boxes, H, W):
+    out = []
+    for b in boxes:
+        m = np.zeros((H, W), np.float32)
+        x, y, w, h = [int(round(float(v))) for v in b]
+        m[y:y + h, x:x + w] = 1.0
+        out.append(m)
+    return out
+
+
+@pytest.mark.parametrize("labels", [False, True])
+def test_lwl_processing_matches_jax(labels):
+    """LWLProcessing (and RTSProcessing, with the classifier's labels) at
+    flip probability 0, where the two packages must agree: crops, masks,
+    boxes and labels bit for bit, over three seeds."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    ims, boxes = _images(5, n=4, H=120, W=160), _boxes(5, n=4)
+    masks = _masks(boxes, 120, 160)
+    for seed in range(3):
+        data = lambda: {"train_images": list(ims[:1]), "train_anno": list(boxes[:1]),
+                        "train_masks": list(masks[:1]), "test_images": list(ims[1:]),
+                        "test_anno": list(boxes[1:]), "test_masks": list(masks[1:]),
+                        "dataset": "d"}
+        gens = _gens(seed)
+        ref = _lwl_processing(j_processing, j_tfm, 0.0, labels)(data())
+        got = _lwl_processing(t_processing, t_tfm, 0.0, labels)(data(), gens["rng"],
+                                                               gens["np_rng"])
+        _equal(got, ref)
+        assert all(m.any() for m in got["test_masks"])
+        assert ("test_label" in got) == labels
+        if labels:
+            assert got["test_label"][0].shape == (4, 4)
+
+
+def test_flipped_mask_follows_its_box():
+    """At flip probability 1 the port flips each crop's mask with its image
+    and box, as upstream's LWLProcessing does: the mask's centroid stays
+    within 2 px of the box's centre in x. The target is a 30 px square in
+    the middle of a 400x400 image, so every crop lies inside the image. The JAX package's processing flips the image and
+    box but not the mask: its masks stay where the unflipped target was,
+    up to twice the jitter's offset away. Frames whose mask the jitter
+    pushed against the crop's edge are left out."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    rng = np.random.RandomState(2)
+    ims = [rng.randint(0, 255, (400, 400, 3)).astype(np.uint8) for _ in range(4)]
+    boxes = [np.array([185.0 + i, 186.0 - i, 30.0, 30.0], np.float32) for i in range(4)]
+    masks = _masks(boxes, 400, 400)
+
+    def centre_dx(out):
+        """Per frame, |mask centroid - box centre| in x, NaN where the
+        jitter put the mask against the crop's edge (clipped)."""
+        dx = []
+        for m, b in zip(out["train_masks"] + out["test_masks"],
+                        out["train_anno"] + out["test_anno"]):
+            cols = m.sum(axis=0)
+            xs = np.nonzero(cols)[0]
+            clipped = not xs.size or xs[0] == 0 or xs[-1] == m.shape[1] - 1
+            centroid = (cols * np.arange(m.shape[1])).sum() / max(cols.sum(), 1.0)
+            dx.append(np.nan if clipped else abs(centroid + 0.5 - (b[0] + b[2] / 2)))
+        return np.asarray(dx)
+
+    got_dx, ref_dx = [], []
+    for seed in range(4):
+        data = lambda: {"train_images": list(ims[:1]), "train_anno": list(boxes[:1]),
+                        "train_masks": list(masks[:1]), "test_images": list(ims[1:]),
+                        "test_anno": list(boxes[1:]), "test_masks": list(masks[1:]),
+                        "dataset": "d"}
+        gens = _gens(seed)
+        ref_dx.append(centre_dx(_lwl_processing(j_processing, j_tfm, 1.0)(data())))
+        got_dx.append(centre_dx(_lwl_processing(t_processing, t_tfm, 1.0)(
+            data(), gens["rng"], gens["np_rng"])))
+    got_dx, ref_dx = np.concatenate(got_dx), np.concatenate(ref_dx)
+    assert np.isfinite(got_dx).sum() >= 12 and np.isfinite(ref_dx).sum() >= 12
+    assert np.nanmax(got_dx) <= 2.0, got_dx
+    assert np.nanmax(ref_dx) > 8.0, ref_dx
+
+
+def test_lwl_sampler_matches_jax():
+    """LWLSampler over SyntheticVOSVideoDataset with LWLProcessing (flip
+    probability 0): the samples, masks included, bit for bit from the same
+    seeds, and their collation."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu.training.datasets.synthetic_video import SyntheticVOSVideoDataset
+    from pytracking_tpu.training.loader import _stack_dim1 as j_stack_dim1
+    from pytracking_tpu.training.sampler import LWLSampler
+    from pytracking_tpu_torch.training import processing as t_processing
+    from pytracking_tpu_torch.training.datasets.synthetic_video import \
+        SyntheticVOSVideoDataset as TSyntheticVOSVideoDataset
+    from pytracking_tpu_torch.training.sampler import LWLSampler as TLWLSampler
+
+    kw = dict(samples_per_epoch=4, max_gap=20, num_test_frames=3, num_train_frames=1)
+    j = LWLSampler([SyntheticVOSVideoDataset(num_sequences=6, seq_len=30)],
+                   processing=_lwl_processing(j_processing, j_tfm, 0.0), **kw)
+    t = TLWLSampler([TSyntheticVOSVideoDataset(num_sequences=6, seq_len=30)],
+                    processing=_lwl_processing(t_processing, t_tfm, 0.0), seed=9, **kw)
+    random.seed(9)
+    np.random.seed(9)
+    got, ref = [t[i] for i in range(4)], [j[i] for i in range(4)]
+    for a, b in zip(got, ref):
+        _equal(a, b)
+        assert len(a["train_masks"]) == 1 and len(a["test_masks"]) == 3
+    _equal(t_stack_dim1(got), j_stack_dim1(ref))
+    assert t_stack_dim1(got)["test_masks"].shape == (3, 4, 96, 96)
