@@ -20,32 +20,32 @@ Phases (any failure exits non-zero and prints no result line):
               same weights in float32 on the CPU (plain), at the main path's
               sample size (L = 2592) and the limits of the JAX package's bf16
               TaMOs gate;
-  6. profile  device kernel time by kernel over 3 tracked frames;
+  6. profile  device kernel time by kernel over 2 tracked frames;
   7. dimp     DiMP-50 in float32 at full width (random weights from a seed,
               not-found threshold DIMP_NOT_FOUND_THRESHOLD; no Pallas kernel
               on this path: cuDNN convolutions, cuBLAS matmuls, autograd):
               `initialize` on the synthetic 480x640
-              frame, then `track` over 60 frames of a moving target; finite
+              frame, then `track` over 45 frames of a moving target; finite
               outputs, frame times (all, and the periodic-refit frames),
               the flag histogram and the host synchronisations per frame;
   8. dimp_gate  the same weights, seed and draws through `initialize` + 10
               frames on the card and on the CPU, both IEEE float32, each
               CPU frame started from the card's state: equal flags and
               replace indices, boxes within DIMP_GATE_PX;
-  9. dimp_profile  device kernel time by kernel over 3 DiMP frames;
+  9. dimp_profile  device kernel time by kernel over 2 DiMP frames;
  10. superdimp, prdimp, dimp18, superdimp_simple  the rest of the DiMP
               family at full width on the same sequence, each as `dimp`
               (no Pallas kernel on these paths either): SuperDiMP (DiMP-50's
               net, 352x352 'inside_major' samples, 10 relative-space
               refinement steps) and PrDiMP-50 (KL/Newton refit, softmax
-              scores) over 60 frames, DiMP-18 and SuperDiMP-simple (the
-              generic Gauss-Newton refit by torch.func) over 40; each at its
+              scores) over 45 frames (SuperDiMP 60), DiMP-18 and SuperDiMP-simple (the
+              generic Gauss-Newton refit by torch.func) over 30; each at its
               own not-found threshold (*_NOT_FOUND_THRESHOLD);
  11. *_gate   `dimp_gate` for each of the four over 5 frames;
- 12. superdimp_profile  device kernel time by kernel over 3 SuperDiMP frames;
+ 12. superdimp_profile  device kernel time by kernel over 2 SuperDiMP frames;
  13. tomp     ToMP-50 in IEEE float32 at full width (288x288, d = 512; no
               Pallas kernel on this path: head dim 64, plain attention) on
-              the DiMP sequence, 110 frames, at the thresholds in TOMP;
+              the DiMP sequence, 45 frames, at the thresholds in TOMP;
               frame times, flags, one host synchronisation per frame, the
               encoder's key padding against the stored slots, at least one
               memory update into slot 1 and one not_found frame (the
@@ -54,8 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
               `dimp_gate`, over 5 frames;
  15. tomp_bf16_gate  ToMP-50 bf16 (weights rounded through bf16) against
               float32 on the card, at the TaMOs gate's limits;
- 16. tomp_profile  device kernel time by kernel over 3 ToMP-50 frames;
- 17. tomp101  ToMP-101 as `tomp` over 40 frames (its seeded peaks allow no
+ 16. tomp_profile  device kernel time by kernel over 2 ToMP-50 frames;
+ 17. tomp101  ToMP-101 as `tomp` over 30 frames (its seeded peaks allow no
               not_found frame after a stored one: see TOMP101_*);
  18. tamos_swin  TaMOs-SwinBase in bf16 (Swin float32) as `main`: 110
               frames, two objects, the kernel 6 times per frame on the
@@ -73,18 +73,18 @@ Phases (any failure exits non-zero and prints no result line):
               and kys_profile (K1 launches counted by kernel name: 0);
  20. keep_track  KeepTrack (`default`: two ResNet-50s at 480x480, K = 10,
               the SuperGlue GNN and Sinkhorn, the device association) over
-              60 frames at the KEEP_TRACK_* cuts: one synchronisation per
+              30 frames at the KEEP_TRACK_* cuts: one synchronisation per
               frame, frames with two or more candidates, a new object id from
               the association, a lost frame that rescales the search area
               from the history, K1 not launched; keep_track_gate (also the
               association state equal), keep_track_profile (K1: 0);
-              keep_track_fast (`default_fast`, 352x352, 40 frames, one
+              keep_track_fast (`default_fast`, 352x352, 30 frames, one
               synchronisation per frame).
  21. lwl      LWL-YTVOS in IEEE float32 at full width (maskrcnn ResNet-50 to
               layer4, 480x832 crops, memory 32, refit every frame from frame
               3; no Pallas kernel on this path) on a synthetic DAVIS-sized
               VOS sequence (480x854, an ellipse and a rectangle drifting over
-              a seeded texture), object 1 from its mask, 60 frames: a memory
+              a seeded texture), object 1 from its mask, 45 frames: a memory
               update and a refit on every frame from frame 3, one
               synchronisation per frame, the min_mask_area fallback
               reported, K1 not launched; then lwl_gate (card vs CPU, 5
@@ -92,12 +92,12 @@ Phases (any failure exits non-zero and prints no result line):
               lwl_bf16_gate (weights rounded through bf16 against float32 on
               the card, 10 steps: mask-logit correlation > 0.98) and
               lwl_profile (K1: 0);
- 22. lwl_multi  both objects in one batched step, 30 frames: one
+ 22. lwl_multi  both objects in one batched step, 20 frames: one
               synchronisation per frame, labels in {0, 1, 2}, the aggregated
               foreground at most 1, and one batched step against two
               single-object steps;
- 23. lwl_boxinit  LWL box-init from object 1's box alone, 20 frames;
- 24. rts      RTS-50 from object 1's box (STA's first mask), 60 frames at the
+ 23. lwl_boxinit  LWL box-init from object 1's box alone, 15 frames;
+ 24. rts      RTS-50 from object 1's box (STA's first mask), 45 frames at the
               RTS_* cuts: found, lost and re-found frames, each lost frame's
               rescaled search area against a host recomputation, two mask and
               two classifier refits or more, one synchronisation per frame,
@@ -107,22 +107,22 @@ Phases (any failure exits non-zero and prints no result line):
               to layer3, IoU-Net, 288x288, compressed_dim 64, memory 250; no
               Pallas kernel on this path: the online classifier's GN-CG runs
               on torch.func Jacobian products, the scores upsample through
-              cuFFT) on the DiMP sequence, 60 frames: one synchronisation per
+              cuFFT) on the DiMP sequence, 45 frames: one synchronisation per
               frame, the periodic refits at frame_num 11, 21, ..., the score
               peaks and flags, K1 not launched; atom_gate (card vs CPU,
               single steps at frames 8-12 from the card's state, the refit at
               frame_num 11 among them: flags, replace indices, boxes, the
               filter within ATOM_FILTER_GATE of scale), atom_profile (K1: 0);
-              atom_prob_ml, atom_vot, atom_multiscale (15 frames + 5 with the
+              atom_prob_ml, atom_vot, atom_multiscale (10 frames + 5 with the
               synchronisations counted);
  26. eco      ECO (`eco/default`) in IEEE float32 at full width
               (ResNet18-VGG-m1 vggconv1 + layer3, 5 scales, memory 200; the
               filters in the Fourier domain on complex64, PCA projections by
-              SVD in `initialize`), 60 frames: one synchronisation per frame,
+              SVD in `initialize`), 45 frames: one synchronisation per frame,
               the host-scheduled refits, K1 not launched; eco_gate (card vs
               CPU: the init's P and hf after sign alignment, then single
               steps at frames 8-12: scale index, boxes, score maps, filters),
-              eco_profile (K1: 0), eco_mobile3 (15 + 5 frames);
+              eco_profile (K1: 0), eco_mobile3 (10 + 5 frames);
  27. dimp_bf16_gate, eco_bf16_gate  DiMP-50 bf16 (`dtype=torch.bfloat16`:
               bf16 ResNet-50, weights rounded through bf16) and ECO's bf16
               backbone against float32 on the card, 10 steps, each bf16 step
@@ -208,7 +208,7 @@ Phases (any failure exits non-zero and prints no result line):
               masks, the backbone frozen with its BatchNorms in train mode,
               the target model refined twice after each test frame and
               trained through its steepest-descent steps, the Lovász hinge),
-              an epoch of 12 steps: the checks of train_prdimp50, the
+              an epoch of 6 steps: the checks of train_prdimp50, the
               backbone's weights bit for bit and its running statistics
               moved; train_recipes also runs lwl_stage1 and lwl_boxinit;
  38. train_rts  RTS-50 through `run_training("rts", "rts50")` (8
@@ -216,7 +216,28 @@ Phases (any failure exits non-zero and prints no result line):
               layer2 on trained), as train_lwl;
  39. train_lwl_gate, train_rts_gate  `train_gate` for LWL stage 2 and
               RTS-50 (4 sequences each, TRAIN_LWL_GATE_BOUNDS /
-              TRAIN_RTS_GATE_BOUNDS).
+              TRAIN_RTS_GATE_BOUNDS); then RTS's classifier branch alone:
+              the card's filter and scores fitted from the CPU's
+              classification features against the CPU's fit
+              (TRAIN_RTS_CLASSIFIER_GATE).
+ 40. train_kys  KYS through `run_training("kys", "kys")` at full width (8
+              sequences x (3 + 10) frames at 288x288, the score jitter on,
+              the DiMP part frozen without autograd, its BatchNorms on batch
+              statistics with the running ones kept, 9 predictor steps), an
+              epoch of 6 steps: _train_recipe_run's checks, only the
+              predictor trained and every predictor parameter with a
+              gradient moved, every other parameter and every running
+              statistic bit for bit, ms per step and a profiled step;
+ 41. train_keep_track  KeepTrack's matching net through
+              `run_training("keep_track", "keep_track")` (8 pairs at
+              288x288, K = 8, the whole net trained in train mode), an epoch
+              of 6 steps: every parameter with a gradient moved, every
+              running statistic of the backbone (layer4 not run) and of the
+              matcher's MLPs moved;
+ 42. train_kys_gate, train_keep_track_gate  `train_gate` for KYS (score
+              jitter off, then on with one CPU generator's draws on both
+              sides) and KeepTrack (4 sequences or pairs each,
+              TRAIN_KYS_GATE_BOUNDS / TRAIN_KEEP_TRACK_GATE_BOUNDS).
 Each phase's wall time is printed as `phase <tag>: <seconds> s` when it
 ends.
 The port's entry points choose their own float32 precision (IEEE, not TF32);
@@ -251,9 +272,11 @@ K1_KERNEL = "mha_fwd"                # both of K1's kernels' names start so
 TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
                                     # of 24x36 tokens), heads, head dim
 N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
-DIMP_FRAMES = 60                     # DiMP-50, SuperDiMP, PrDiMP-50: refits at 20 and 40
-SHORT_FRAMES = 40                    # DiMP-18 and SuperDiMP-simple
+DIMP_FRAMES = 45                     # DiMP-50, PrDiMP-50, ToMP-50: refits at 20 and 40
+SUPERDIMP_FRAMES = 60                # its seeded net's normal frames come after frame 45
+SHORT_FRAMES = 30                    # DiMP-18, SuperDiMP-simple, ToMP-101, KeepTrack-fast
 WARMUP_FRAMES = 5
+PROFILE_FRAMES = 2                   # tracked frames under each tracker's profiler
 DIMP_GATE_FRAMES = 10
 FAMILY_GATE_FRAMES = 5
 # DiMP-50's not-found threshold is 0.25, for a trained net whose score peaks
@@ -363,7 +386,7 @@ KYS_DIMP_THRESHOLD = 0.03
 # frame, one hard negative, 39 not_found.
 KEEP_TRACK_NOT_FOUND_THRESHOLD = 0.015
 KEEP_TRACK_CANDIDATE_THRESHOLD = 0.01
-KEEP_TRACK_FRAMES = 60
+KEEP_TRACK_FRAMES = 30
 # RTS-50: the module's classifier thresholds (not found 0.30, re-found only
 # at 0.50) are for a trained net's scores. The seeded net's classifier peaks
 # on the VOS sequence, never lost, are 0.02075-0.02814, median 0.02375
@@ -379,13 +402,13 @@ RTS_TOO_SMALL_THRESHOLD = 0.0222
 # parameter module: (label, not-found threshold, conf_ths, distractor threshold, frames,
 # whether a not_found frame is required)
 TOMP = {"tomp50": ("ToMP-50", TOMP_NOT_FOUND_THRESHOLD, TOMP_CONF_THS,
-                   TOMP_DISTRACTOR_THRESHOLD, N_FRAMES, True),
+                   TOMP_DISTRACTOR_THRESHOLD, DIMP_FRAMES, True),
         "tomp101": ("ToMP-101", TOMP101_NOT_FOUND_THRESHOLD, TOMP101_CONF_THS,
                     TOMP101_DISTRACTOR_THRESHOLD, SHORT_FRAMES, False)}
 # parameter module: (label, package, not-found threshold, frames, gate px)
 DIMP_FAMILY = {
     "dimp50": ("DiMP-50", "dimp", DIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES, DIMP_GATE_PX),
-    "super_dimp": ("SuperDiMP", "dimp", SUPERDIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES,
+    "super_dimp": ("SuperDiMP", "dimp", SUPERDIMP_NOT_FOUND_THRESHOLD, SUPERDIMP_FRAMES,
                    RELATIVE_GATE_PX),
     "prdimp50": ("PrDiMP-50", "dimp", PRDIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES,
                  RELATIVE_GATE_PX),
@@ -678,9 +701,14 @@ def phase_main(main_keep, module="tamos_resnet50", tag="main", label="TaMOs-R50"
     return spec, tracker, launches, float(np.median(steady))
 
 
+def _profile_range(t_next):
+    """The frame indices a profile tracks from frame t_next on."""
+    return range(t_next, t_next + PROFILE_FRAMES)
+
+
 def phase_profile(tracker, frames=None, tag="profile", stats=None):
-    """Device kernel time by kernel over the tracked frames (3 of a new
-    sequence by default), and the device's busy share of the host's wall
+    """Device kernel time by kernel over the tracked frames (PROFILE_FRAMES
+    of a new sequence by default), and the device's busy share of the host's wall
     time under the profiler. Fails if the profiler saw no device time.
     `stats`, a dict, receives the kernel ms, launches and busy share per
     frame."""
@@ -689,7 +717,7 @@ def phase_profile(tracker, frames=None, tag="profile", stats=None):
 
     if frames is None:
         bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-        frames = [synthetic_frame(bg, t) for t in range(3)]
+        frames = [synthetic_frame(bg, t) for t in range(PROFILE_FRAMES)]
     n = len(frames)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -818,7 +846,7 @@ def dimp_spec(name, device="cuda", **kw):
 
 def phase_dimp(name="dimp50", tag="dimp", require_flags=()):
     """A DiMP-family tracker at full width on the card: initialize + its
-    frames (60 or 40), then 10 more with the host synchronisations counted.
+    frames (45 or 30), then 10 more with the host synchronisations counted.
     Fails unless every frame synchronises once and, for the names given in
     `require_flags`, those flags and a refit occur."""
     from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker
@@ -1395,10 +1423,10 @@ def keep_track_compare(gpu_state, cpu_state):
 # ---------------------------------------------------------------- VOS (slice 6)
 
 VOS_H, VOS_W = 480, 854             # a DAVIS frame
-LWL_FRAMES = 60
-LWL_MULTI_FRAMES = 30
-LWL_BOXINIT_FRAMES = 20
-RTS_FRAMES = 60
+LWL_FRAMES = 45                      # memory full at frame 33
+LWL_MULTI_FRAMES = 20
+LWL_BOXINIT_FRAMES = 15
+RTS_FRAMES = 45                      # refits at 21 and 41 (mask, then classifier)
 VOS_GATE_FRAMES = 5
 LWL_BF16_GATE_FRAMES = 10
 SYNC_FRAMES = 10
@@ -1502,7 +1530,7 @@ def _masks_report(tag, outs, gt_masks):
 
 def phase_lwl(tag="lwl"):
     """LWL-YTVOS at full width (480x832 crops, memory 32, 20 / 3 GN steps,
-    refit every frame from frame 3), one object from its mask, 60 frames.
+    refit every frame from frame 3), one object from its mask, 45 frames.
     Fails unless every frame from frame 3 stores the previous frame and
     refits, every frame synchronises once and K1 is not launched; reports
     whether the min_mask_area fallback was reached. Returns (spec, tracker,
@@ -1549,7 +1577,7 @@ def phase_lwl(tag="lwl"):
 
 
 def phase_lwl_multi(spec, tag="lwl_multi"):
-    """Both objects in one batched LWL step, 30 frames: one synchronisation
+    """Both objects in one batched LWL step, 20 frames: one synchronisation
     per frame, the label map in {0, 1, 2}, the aggregated foreground at most
     1 per pixel; then one frame's batched step against two single-object
     steps from the same states and inputs (masks equal, raw logits within
@@ -1599,7 +1627,7 @@ def phase_lwl_multi(spec, tag="lwl_multi"):
 
 def phase_lwl_boxinit(tag="lwl_boxinit"):
     """LWL box-init from a box alone (the box label encoder decodes the
-    first mask), 20 frames, one synchronisation per frame."""
+    first mask), 15 frames, one synchronisation per frame."""
     from pytracking_tpu_torch.trackers.lwl import LWLTracker
 
     spec = vos_spec("lwl_boxinit")
@@ -1629,7 +1657,7 @@ def rts_expected_rescale(hist, hist_len, lost):
 def phase_rts(tag="rts"):
     """RTS-50 at full width started from a box (STA gives the first mask;
     the seeded STA's refined logits are negative over the whole box, so that
-    mask is empty and the first frame keeps the box's position), 60 frames
+    mask is empty and the first frame keeps the box's position), 45 frames
     at the RTS_* cuts: found, lost and re-found frames; each lost frame's
     search area rescaled from the scale history (held to a host
     recomputation); the mask refit (every 20 frames while not lost) and the
@@ -1862,10 +1890,10 @@ def phase_lwl_bf16_gate(spec32, tag="lwl_bf16_gate"):
 
 # ATOM and ECO (no Pallas kernel on either path: cuDNN convolutions, cuFFT,
 # cuBLAS, autograd and torch.func Jacobian products in the GN-CG solver)
-ATOM_FRAMES = 60
-ECO_FRAMES = 60
+ATOM_FRAMES = 45                     # refits at frame_num 11, 21, 31, 41
+ECO_FRAMES = 45
 SHORT_SYNC_FRAMES = 5
-ATOM_SHORT_FRAMES = 15                 # + SHORT_SYNC_FRAMES: the ATOM variants, ECO-mobile3
+ATOM_SHORT_FRAMES = 10                 # + SHORT_SYNC_FRAMES: the ATOM variants, ECO-mobile3
 GATE_FIRST_FRAME = 8                   # card-vs-CPU steps 8-12: the refit at frame_num 11
 ONLINE_GATE_FRAMES = 5
 ATOM_FILTER_GATE = 1e-4                # of the filter's scale, after a step without refit
@@ -2218,6 +2246,7 @@ SERVING_GATE_STREAMS = 4
 SERVING_GATE_FREE = 15              # free steps first: the gate's 10 hold the tick at 21
 SERVING_FILTER_GATE = 1e-4          # of the filters' scale, after the tick
 SERVING_SUPERDIMP_STREAMS = 8
+SERVING_SUPERDIMP_STEPS = 40         # the ticks after steps 20 and 40
 SERVING_BF16_STREAMS = 8
 _PALETTE = ((220, 60, 60), (60, 200, 90), (230, 220, 40), (200, 70, 200))
 
@@ -2343,7 +2372,7 @@ def phase_serving(dimp_median, tag="serving"):
         after = [round(step_ms[i + 1], 3) for i in ticks if i + 1 < len(step_ms)]
         stats = {}
         t_next = server._frame_num
-        check(phase_profile(server, [stream_batch(bg, B, t) for t in range(t_next, t_next + 3)],
+        check(phase_profile(server, [stream_batch(bg, B, t) for t in _profile_range(t_next)],
                             tag=f"{tag}_b{B}_profile", stats=stats) == 0,
               f"{tag}: K1 launched under the profiler")
         tick_ms = []
@@ -2432,14 +2461,15 @@ def phase_serving_gate(tag="serving_gate"):
 
 def phase_serving_superdimp(tag="serving_superdimp"):
     """SuperDiMP (352x352 'inside_major' crops, the relative-space ascent)
-    served at SERVING_SUPERDIMP_STREAMS streams for SHORT_FRAMES steps at the
+    served at SERVING_SUPERDIMP_STREAMS streams for SERVING_SUPERDIMP_STEPS steps at the
     `superdimp` phase's cut (SUPERDIMP_NOT_FOUND_THRESHOLD): step times, the
     score peaks and flags, one synchronisation per step and per deferred
     scan. Returns K1's launches over the phase (0 expected)."""
     spec = dimp_spec("super_dimp")
     B = SERVING_SUPERDIMP_STREAMS
     _k1_zero()
-    server, init_ms, step_ms, ticks, flags, peaks = _serve(tag, spec, B, SHORT_FRAMES)
+    server, init_ms, step_ms, ticks, flags, peaks = _serve(tag, spec, B,
+                                                           SERVING_SUPERDIMP_STEPS)
     steady = np.asarray(step_ms[WARMUP_FRAMES:])
     med = float(np.median(steady))
     print(f"{tag}: B={B}: init {init_ms:.1f} ms; median {med:.3f} ms/step, p90 "
@@ -2933,7 +2963,8 @@ def phase_harness_pool(tag="harness_pool"):
 # ---------------------------------------------------------------- training
 
 TRAIN_SAMPLES = 48                   # per epoch: 6 steps of Settings.batch_size (8)
-TRAIN_VOS_SAMPLES = 96               # train_lwl, train_rts: 12 steps
+TRAIN_VOS_SAMPLES = 48               # train_lwl, train_rts: 6 steps
+TRAIN_MATCHING_SAMPLES = 48          # train_kys, train_keep_track: 6 steps
 TRAIN_TIMED_FROM = 2                 # the median step time skips each run's first 2 steps
 # train_gate: card against CPU after one step from equal weights, both IEEE
 # float32, on 4 sequences of the recipe's pipeline (seed 0). With 2, the
@@ -3073,6 +3104,7 @@ def phase_train_dimp50(tag="train_dimp50"):
 
     root = _train_workspace(tag)
     ckpt_dir = os.path.join(root, "checkpoints", "dimp", "dimp50")
+    net, seeded = _seeded_net("dimp", "dimp50")
     syncs = []                       # per step: the upload's and the step's
     with _counted_train_syncs(syncs):
         _k1_zero()
@@ -3080,7 +3112,7 @@ def phase_train_dimp50(tag="train_dimp50"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         first = run_training("dimp", "dimp50", max_epochs=1, samples_per_epoch=TRAIN_SAMPLES,
-                             device="cuda")
+                             device="cuda", net=net)
         t1 = time.perf_counter()
         second = run_training("dimp", "dimp50", max_epochs=2, samples_per_epoch=TRAIN_SAMPLES,
                               device="cuda")
@@ -3113,7 +3145,7 @@ def phase_train_dimp50(tag="train_dimp50"):
     check(len(syncs) == 2 * steps and syncs[1:steps] == [1] * (steps - 1)
           and syncs[steps + 1:] == [1] * (steps - 1),
           f"{tag}: host synchronisations per step {syncs}")
-    _moved_parameters(tag, second, "dimp", "dimp50")
+    _moved_parameters(tag, second, "dimp", "dimp50", seeded=seeded)
     _profile_train_step(tag, second)
     return k1
 
@@ -3189,9 +3221,9 @@ def train_gate_batch(seed=0, sequences=None, recipe=("dimp", "dimp50")):
 
     n = sequences or TRAIN_GATE_SEQUENCES
     datasets = TRAIN_GATE_DATASETS.get(tuple(recipe), lambda: None)()
-    sampler = _recipe(*recipe).make_sampler(Settings(), datasets, samples_per_epoch=n,
-                                            seed=seed)
-    return _stack_dim1([sampler[i] for i in range(n)])
+    mod = _recipe(*recipe)
+    sampler = mod.make_sampler(Settings(), datasets, samples_per_epoch=n, seed=seed)
+    return _stack_dim1([sampler[i] for i in range(n)], getattr(mod, "STACK_DIM", 1))
 
 
 def _no_dropout(net):
@@ -3205,10 +3237,11 @@ def _no_dropout(net):
     return net
 
 
-def _train_gate_step(device, batch, recipe=("dimp", "dimp50")):
+def _train_gate_step(device, batch, recipe=("dimp", "dimp50"), actor_kwargs=None):
     """One train step of the recipe's seeded net (DiMP-50's; train mode) on
-    `device` with the recipe's actor and per-module Adam: the loss, stats,
-    gradients, running statistics and parameters, on the host."""
+    `device` with the recipe's actor (`make_actor(settings,
+    **actor_kwargs)`) and per-module Adam: the loss, stats, gradients,
+    running statistics and parameters, on the host."""
     from pytracking_tpu_torch.parallel.mesh import read_stats, zero_missing_grads
     from pytracking_tpu_torch.training.optim import adam_per_module
     from pytracking_tpu_torch.training.settings import Settings
@@ -3217,7 +3250,7 @@ def _train_gate_step(device, batch, recipe=("dimp", "dimp50")):
 
     mod, settings = _recipe(*recipe), Settings()
     net = _no_dropout(mod.make_net(settings, device).train())
-    actor = mod.make_actor(settings)
+    actor = mod.make_actor(settings, **(actor_kwargs or {}))
     optimizer, _ = adam_per_module(net, mod.BASE_LR, mod.MODULE_LRS, steps_per_epoch=1,
                                    milestones=getattr(mod, "MILESTONES", None),
                                    weight_decay=getattr(mod, "WEIGHT_DECAY", None),
@@ -3263,6 +3296,25 @@ def _transformer_exact_zero(name):
     return None
 
 
+def _matching_exact_zero(name):
+    """KYS's and KeepTrack's leaves whose gradient is exactly 0 by
+    construction: the biases of the predictor's last conv block of each
+    cost-volume stage (a constant under a softmax: its gradient is the
+    rounding noise of a sum over every cost-volume entry, a large share of
+    the block's own gradient, so it is held to the predictor's gradient
+    scale, 'predictor'), and the matcher's attention key, value and
+    merge biases (a constant per query under the softmax over keys; a
+    constant message, which the graph layer's train-mode BatchNorm removes:
+    'layer'). None otherwise."""
+    if name.startswith(("predictor.cvproc1_1.", "predictor.cvproc2_1.")) and \
+            name.endswith(".bias"):
+        return "predictor"
+    if name.startswith("matcher.") and name.endswith(("proj_k.bias", "proj_v.bias",
+                                                      "merge.bias")):
+        return "layer"
+    return None
+
+
 def _zero_grad_scale(n, ref):
     """The gradient scale a leaf whose gradient is exactly 0 is held to (its
     block's or its layer's weight's, on the reference side), or None for
@@ -3270,15 +3322,19 @@ def _zero_grad_scale(n, ref):
     if n.count(".") < 2:
         return None
     block, layer, leaf = n.rsplit(".", 2)
-    if leaf == "bias" and not n.startswith("clf_encoder.") and (
+    if leaf == "bias" and not n.startswith(("clf_encoder.", "predictor.")) and (
             layer in ("Conv_0", "Dense_0") and f"{block}.BatchNorm_0.running_mean" in ref["state"]
-            or layer == "bb0" and f"{block}.bn.running_mean" in ref["state"]):
+            or layer == "bb0" and f"{block}.bn.running_mean" in ref["state"]
+            or layer.startswith("lin") and f"{block}.bn{layer[3:]}.running_mean" in ref["state"]):
         # a bias before a train-mode BatchNorm: DiMP's, ATOM's, the LWL
-        # label encoders' conv blocks, the LWL decoder's refinement blocks
-        # (RTS's score encoder runs its BatchNorms in eval mode)
+        # label encoders' conv blocks, the LWL decoder's refinement blocks,
+        # the matcher's MLP layers (RTS's score encoder and KYS's predictor
+        # run their BatchNorms in eval mode)
         return float(ref["grads"][f"{block}.{layer}.weight"].abs().max())
-    kind = _transformer_exact_zero(n)
-    if kind == "block":
+    kind = _transformer_exact_zero(n) or _matching_exact_zero(n)
+    if kind == "predictor":
+        block = "predictor"
+    if kind in ("block", "predictor"):
         return max(float(g.abs().max()) for k, g in ref["grads"].items()
                    if k.startswith(block + "."))
     if kind == "layer":
@@ -3320,42 +3376,49 @@ def _train_compare(got, ref):
         step[n] = float(err[big].max()) if big.any() else 0.0
         off += int((err > TRAIN_STEP_GATE).sum())
         total += err.numel()
-    return {"loss": rel["Loss/total"], "stats": max(rel.values()), "grad": grad, "buf": buf,
-            "step": step, "step_share": off / total, "loss_value": ref["stats"]["Loss/total"],
+    return {"loss": rel["Loss/total"], "stats": max(rel.values()), "terms": rel, "grad": grad,
+            "buf": buf, "step": step, "step_share": off / total,
+            "loss_value": ref["stats"]["Loss/total"],
             "acc": tuple(x["stats"].get("ClfTrain/test_acc") for x in (got, ref))}
 
 
-def train_gate_figures(batch, recipe=("dimp", "dimp50")):
+def train_gate_figures(batch, recipe=("dimp", "dimp50"), actor_kwargs=None):
     """Card against CPU after one step each from the same seeded net (the
     recipe's: DiMP-50's) and batch (_train_compare)."""
-    return _train_compare(_train_gate_step("cuda", batch, recipe),
-                          _train_gate_step("cpu", batch, recipe))
+    return _train_compare(_train_gate_step("cuda", batch, recipe, actor_kwargs),
+                          _train_gate_step("cpu", batch, recipe, actor_kwargs))
 
 
-def train_gate_sensitivity(batch, eps=3e-7, recipe=("dimp", "dimp50")):
+def train_gate_sensitivity(batch, eps=3e-7, recipe=("dimp", "dimp50"), actor_kwargs=None):
     """The card against itself with the images changed by a random `eps`
     relative (float32 rounding's scale): how far rounding alone moves the
     step (_train_compare)."""
+    from pytracking_tpu_torch.training.trainer import IMAGE_KEYS
+
     g = np.random.RandomState(1)
     moved = dict(batch)
-    for k in ("train_images", "test_images"):
-        moved[k] = (batch[k] * (1 + eps * g.randn(*batch[k].shape))).astype(np.float32)
-    return _train_compare(_train_gate_step("cuda", moved, recipe),
-                          _train_gate_step("cuda", batch, recipe))
+    for k in IMAGE_KEYS:
+        if k in batch:
+            moved[k] = (batch[k] * (1 + eps * g.randn(*batch[k].shape))).astype(np.float32)
+    return _train_compare(_train_gate_step("cuda", moved, recipe, actor_kwargs),
+                          _train_gate_step("cuda", batch, recipe, actor_kwargs))
 
 
-def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_GATE_BOUNDS):
+def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_GATE_BOUNDS,
+                     actor_kwargs=None, batch=None):
     """One train step of the recipe's seeded net (DiMP-50's) on the card and
     on the CPU from equal weights and one batch of TRAIN_GATE_SEQUENCES
-    sequences (the recipe's pipeline, seeded), both IEEE float32, within
+    sequences (`batch`, by default the recipe's pipeline, seeded), both
+    IEEE float32, the recipe's actor made with `actor_kwargs`, within
     `bounds` (TRAIN_GATE_BOUNDS): the loss terms within 'loss' (relative),
     the running statistics within 'stats', the gradient leaves within
     'grad' of their scale and their median within 'grad_median' (a bias
     before a train-mode BatchNorm, whose gradient is exactly 0, against its
     weight's gradient scale), and Adam's step off by more than
-    TRAIN_STEP_GATE of lr for at most 'step_share' of the elements."""
+    TRAIN_STEP_GATE of lr for at most 'step_share' of the elements. A net
+    whose running statistics all stay (KYS) reads 0 on them."""
     b, n = bounds, TRAIN_GATE_SEQUENCES
-    batch = train_gate_batch(recipe=recipe)
+    batch = train_gate_batch(recipe=recipe) if batch is None else batch
     if "test_sample_region" in batch:
         # TaMOs: the slots with a target in each sequence's test frame
         active = (batch["test_label"].max(axis=(2, 3)) > 0.05)[0]
@@ -3363,11 +3426,11 @@ def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_G
               flush=True)
         check(active.any(axis=0).all(), f"{tag}: a slot has no target in any sequence")
     _k1_zero()
-    f = train_gate_figures(batch, recipe)
+    f = train_gate_figures(batch, recipe, actor_kwargs)
     k1 = _k1_path(tag)
     grads = sorted(f["grad"].values())
     worst = sorted(f["grad"].items(), key=lambda kv: -kv[1])[:3]
-    buf = max(f["buf"].values())
+    buf = max(f["buf"].values(), default=0.0)
     print(f"{tag}: {n} sequences, loss {f['loss_value']:.5f}: card vs CPU "
           f"loss terms {f['stats']:.2e} (<= {b['loss']}), accuracy {f['acc']}, running "
           f"statistics {buf:.2e} (<= {b['stats']}), gradient leaves: worst "
@@ -3376,6 +3439,8 @@ def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_G
           f"{[(n, f'{v:.1e}') for n, v in worst]}; Adam's step off by more than "
           f"{TRAIN_STEP_GATE} of lr for {100 * f['step_share']:.4f}% of the elements "
           f"(<= {100 * b['step_share']}%)", flush=True)
+    print(f"{tag}: loss terms " + ", ".join(f"{k} {v:.2e}" for k, v in f["terms"].items()),
+          flush=True)
     check(f["stats"] <= b["loss"], f"{tag}: the loss terms differ by {f['stats']}")
     check(buf <= b["stats"], f"{tag}: the running statistics differ by {buf}")
     check(grads[-1] <= b["grad"] and grads[len(grads) // 2] <= b["grad_median"],
@@ -3394,15 +3459,26 @@ TRAIN_RECIPES = (("dimp", "dimp18"), ("dimp", "prdimp18"), ("dimp", "super_dimp"
                  ("tamos", "tamos_swin_base"), ("lwl", "lwl_stage1"), ("lwl", "lwl_boxinit"))
 
 
+def _seeded_net(module, name):
+    """(the recipe's seeded net on the card, its state_dict copied to the
+    host before any step)."""
+    from pytracking_tpu_torch.training.settings import Settings
+
+    net = _recipe(module, name).make_net(Settings(), "cuda")
+    return net, {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+
 def _train_recipe_run(tag, module, name, samples):
     """One `run_training(module, name)` call at full width on the recipe's
-    synthetic data in an empty workspace, `samples` sequences: checks one
-    epoch of finite losses, its checkpoint, no fail-safe restart, one host
-    synchronisation per step after the first and K1 not launched. Returns
-    (trainer, seconds, peak device memory, K1's launches)."""
+    synthetic data in an empty workspace, `samples` sequences, on the
+    recipe's seeded net: checks one epoch of finite losses, its checkpoint,
+    no fail-safe restart, one host synchronisation per step after the first
+    and K1 not launched. Returns (trainer, seconds, peak device memory, K1's
+    launches, the net's state before training on the host)."""
     from pytracking_tpu_torch.run_training import run_training
 
     root = _train_workspace(tag)
+    net, seeded = _seeded_net(module, name)
     syncs = []
     with _counted_train_syncs(syncs):
         _k1_zero()
@@ -3410,7 +3486,7 @@ def _train_recipe_run(tag, module, name, samples):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         trainer = run_training(module, name, max_epochs=1, samples_per_epoch=samples,
-                               device="cuda")
+                               device="cuda", net=net)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         k1 = _k1_path(tag)
@@ -3424,19 +3500,23 @@ def _train_recipe_run(tag, module, name, samples):
     check(len(syncs) == steps and syncs[1:] == [1] * (steps - 1),
           f"{tag}: host synchronisations per step {syncs}")
     print(f"{tag}: {steps} steps of {trainer.loaders[0].batch_size} sequences in {seconds:.1f} s "
-          f"(net built, epoch, checkpoint); losses {[round(r['loss'], 4) for r in log]}; "
+          f"(epoch, checkpoint); losses {[round(r['loss'], 4) for r in log]}; "
           f"host synchronisations per step {syncs}", flush=True)
-    return trainer, seconds, peak, k1
+    return trainer, seconds, peak, k1, seeded
 
 
-def _moved_parameters(tag, trainer, module, name, reached=False):
+def _moved_parameters(tag, trainer, module, name, reached=False, seeded=None):
     """Every parameter the recipe trains (requires_grad; ResNet's layer4,
     which only LWL's and RTS's nets run, left out of the others) moved from the recipe's seeded
-    net, and no other; returns the seeded net's state_dict. With `reached`
+    net (its state_dict `seeded`, built anew where not given), and no other;
+    returns the seeded net's state_dict on the net's device. With `reached`
     (ToMP, TaMOs), a trained parameter whose last step's gradient is 0 (the
     first decoder layer's self-attention sees targets that start at 0; the
     FPN's unused level) may stay, each printed."""
-    seeded = _recipe(module, name).make_net(trainer.settings, "cuda").state_dict()
+    if seeded is None:
+        seeded = _recipe(module, name).make_net(trainer.settings, "cuda").state_dict()
+    device = next(trainer.net.parameters()).device
+    seeded = {k: v.to(device) for k, v in seeded.items()}
     params = dict(trainer.net.named_parameters())
     moved = {n for n, p in params.items() if not torch.equal(p, seeded[n])}
     runs_layer4 = module in ("lwl", "rts")           # the segmentation decoders read it
@@ -3484,8 +3564,8 @@ def phase_train_prdimp50(tag="train_prdimp50"):
     one epoch of TRAIN_SAMPLES sequences; the checks of _train_recipe_run,
     every parameter moved; ms per step, sequences/s, the loader's wait, the
     upload, peak memory and a profile of one step."""
-    trainer, _, peak, k1 = _train_recipe_run(tag, "dimp", "prdimp50", TRAIN_SAMPLES)
-    _moved_parameters(tag, trainer, "dimp", "prdimp50")
+    trainer, _, peak, k1, seeded = _train_recipe_run(tag, "dimp", "prdimp50", TRAIN_SAMPLES)
+    _moved_parameters(tag, trainer, "dimp", "prdimp50", seeded=seeded)
     _step_report(tag, (trainer,), peak)
     _profile_train_step(tag, trainer)
     del trainer
@@ -3501,8 +3581,8 @@ def phase_train_atom(tag="train_atom"):
     _train_recipe_run, every IoU-Net parameter moved, every backbone weight
     bit for bit the seeded one, the backbone's BatchNorm running statistics
     moved (layer4's, not run, unchanged); the figures of train_prdimp50."""
-    trainer, _, peak, k1 = _train_recipe_run(tag, "bbreg", "atom", TRAIN_SAMPLES)
-    seeded = _moved_parameters(tag, trainer, "bbreg", "atom")
+    trainer, _, peak, k1, seeded = _train_recipe_run(tag, "bbreg", "atom", TRAIN_SAMPLES)
+    seeded = _moved_parameters(tag, trainer, "bbreg", "atom", seeded=seeded)
     state = trainer.net.state_dict()
     frozen = [k for k in state if k.startswith("feature_extractor.")
               and not k.endswith(("running_mean", "running_var"))]
@@ -3538,11 +3618,11 @@ def phase_train_recipes(tag="train_recipes"):
     k1 = 0
     for module, name in TRAIN_RECIPES:
         sub = f"{tag}/{name}"
-        trainer, seconds, peak, n = _train_recipe_run(
+        trainer, seconds, peak, n, seeded = _train_recipe_run(
             sub, module, name, TRAIN_RECIPE_STEPS * 8)
         k1 += n
         seeded = _moved_parameters(sub, trainer, module, name,
-                                   reached=module in ("tomp", "tamos", "lwl"))
+                                   reached=module in ("tomp", "tamos", "lwl"), seeded=seeded)
         _step_report(sub, (trainer,), peak, first=1)
         if module == "lwl":
             _frozen_backbone_report(sub, trainer, seeded)
@@ -3604,8 +3684,8 @@ def _train_transformer_phase(tag, module, name, samples=TRAIN_SAMPLES, profile=T
     moved and every frozen one bit for bit the seeded one, backbone
     BatchNorm statistics included; the encoder's attention projections
     moved; ms per step, sequences/s, peak memory and a profiled step."""
-    trainer, _, peak, k1 = _train_recipe_run(tag, module, name, samples)
-    seeded = _moved_parameters(tag, trainer, module, name, reached=True)
+    trainer, _, peak, k1, seeded = _train_recipe_run(tag, module, name, samples)
+    seeded = _moved_parameters(tag, trainer, module, name, reached=True, seeded=seeded)
     params = dict(trainer.net.named_parameters())
     enc = [n for n in params if ".encoder." in n and ".self_attn." in n
            and n.endswith(("query.weight", "key.weight", "value.weight"))]
@@ -3723,6 +3803,10 @@ TRAIN_LWL_GATE_BOUNDS = {"loss": 3e-5,           # 1.07e-7; 2.14e-6
                          "grad": 0.75,           # 7.32e-2; 7.28e-2
                          "grad_median": 5e-2,    # 2.90e-3; 4.42e-3
                          "step_share": 5e-2}     # 0.411%; 0.454%
+# train_rts_gate/classifier: the card's filter and scores fitted from the
+# CPU's classification features against the CPU's fit (2.22e-6, 4.02e-6;
+# scripts/train_check.py rtsstages, NVIDIA H100 80GB HBM3, 700.00 W).
+TRAIN_RTS_CLASSIFIER_GATE = 5e-5
 TRAIN_RTS_GATE_BOUNDS = {"loss": 1e-2,           # 9.86e-4; 6.45e-5
                          "stats": 1e-4,          # 1.06e-5; 2.72e-6
                          "grad": 2.5,            # 0.153; 0.233
@@ -3764,8 +3848,8 @@ def _train_vos_phase(tag, module, name, frozen=("feature_extractor.",)):
     parameter with a gradient moved and no other, the frozen backbone
     weights bit for bit and its running statistics moved; ms per step,
     sequences/s, peak memory, the card, and a profiled step."""
-    trainer, _, peak, k1 = _train_recipe_run(tag, module, name, TRAIN_VOS_SAMPLES)
-    seeded = _moved_parameters(tag, trainer, module, name, reached=True)
+    trainer, _, peak, k1, seeded = _train_recipe_run(tag, module, name, TRAIN_VOS_SAMPLES)
+    seeded = _moved_parameters(tag, trainer, module, name, reached=True, seeded=seeded)
     _frozen_backbone_report(tag, trainer, seeded, frozen)
     median = _step_report(tag, (trainer,), peak)
     print(f"{tag}: {name} at {trainer.settings.output_sz}x{trainer.settings.output_sz}, "
@@ -3792,6 +3876,177 @@ def phase_train_rts(tag="train_rts"):
     the backbone trained from layer2 on): _train_vos_phase."""
     return _train_vos_phase(tag, "rts", "rts50", frozen=(
         "feature_extractor.conv1", "feature_extractor.bn1", "feature_extractor.layer1_"))
+
+
+def rts_classifier_figures(batch):
+    """RTS-50's classifier branch on a gate batch, card against CPU, in train
+    mode without autograd, from equal seeded weights and the fallback train
+    labels computed once on the CPU: the relative differences of layer3 and
+    the classification features; of the fitted filter and the test scores,
+    each side from its own features ('filter', 'scores'); and of the card's
+    filter and scores fitted from the CPU's features ('filter_cpu_feat',
+    'scores_cpu_feat')."""
+    from pytracking_tpu_torch.models.rts.rts_net import fallback_train_label
+    from pytracking_tpu_torch.training.settings import Settings
+    from pytracking_tpu_torch.training.trainer import batch_to_device
+    from pytracking_tpu_torch.utils.device import ieee_float32
+
+    mod = _recipe("rts", "rts50")
+    out = {}
+    for device in ("cuda", "cpu"):
+        net = mod.make_net(Settings(), device).train()
+        b = batch_to_device(batch, device)
+        with torch.no_grad(), ieee_float32():
+            tr_bb, _ = net._frames_features(b["train_images"])
+            te_bb, _ = net._frames_features(b["test_images"])
+            tr_clf = net.extract_classification_feat(tr_bb)
+            te_clf = net.extract_classification_feat(te_bb)
+            if device == "cuda":
+                H, W = b["train_images"].shape[-2:]
+                label = fallback_train_label(b["train_anno"].cpu(), tuple(tr_clf.shape[-2:]),
+                                             (H, W), net.classifier.filter_initializer.filter_size)
+            filt = net.classifier.get_filter(tr_clf, b["train_anno"],
+                                             train_label=label.to(device))
+            out[device] = {"net": net, "anno": b["train_anno"], "layer3": tr_bb["layer3"],
+                           "tr_clf": tr_clf, "te_clf": te_clf, "filter": filt,
+                           "scores": net.classifier.classify(filt, te_clf)}
+    c, p = out["cuda"], out["cpu"]
+    with torch.no_grad(), ieee_float32():
+        filt = c["net"].classifier.get_filter(p["tr_clf"].cuda(), c["anno"],
+                                              train_label=label.cuda())
+        scores = c["net"].classifier.classify(filt, p["te_clf"].cuda())
+    figures = {k: _rel(c[k], p[k]) for k in ("layer3", "tr_clf", "te_clf", "filter", "scores")}
+    figures.update(filter_cpu_feat=_rel(filt, p["filter"]), scores_cpu_feat=_rel(scores,
+                                                                                  p["scores"]))
+    del out, c, p
+    torch.cuda.empty_cache()
+    return figures
+
+
+def phase_train_rts_gate(tag="train_rts_gate"):
+    """RTS-50's gate (TRAIN_RTS_GATE_BOUNDS, on the fallback labels each side
+    computes itself), then its classifier branch alone
+    (rts_classifier_figures): the card's filter and test scores fitted from
+    the CPU's classification features within TRAIN_RTS_CLASSIFIER_GATE of
+    the CPU's, every element (a forward check; the step's worst gradient
+    leaf cannot be held this tightly). From its own features the card's
+    filter lies far further off, printed beside it: the hinge optimiser
+    amplifies the features' card-vs-CPU rounding (PERF.md §6)."""
+    recipe = ("rts", "rts50")
+    batch = train_gate_batch(recipe=recipe)
+    k1 = phase_train_gate(tag, recipe, TRAIN_RTS_GATE_BOUNDS, batch=batch)
+    _k1_zero()
+    f = rts_classifier_figures(batch)
+    k1 += _k1_path(f"{tag}/classifier")
+    print(f"{tag}/classifier: card vs CPU, relative: layer3 {f['layer3']:.2e}, classification "
+          f"features {f['tr_clf']:.2e} / {f['te_clf']:.2e}; from its own features the filter "
+          f"{f['filter']:.2e}, the scores {f['scores']:.2e}; from the CPU's features the filter "
+          f"{f['filter_cpu_feat']:.2e}, the scores {f['scores_cpu_feat']:.2e} (<= "
+          f"{TRAIN_RTS_CLASSIFIER_GATE})", flush=True)
+    check(max(f["filter_cpu_feat"], f["scores_cpu_feat"]) <= TRAIN_RTS_CLASSIFIER_GATE,
+          f"{tag}/classifier: the card's fit from the CPU's features differs: {f}")
+    return k1
+
+
+# ------------------------------------------------ training: KYS and KeepTrack
+
+# train_kys_gate / train_keep_track_gate: card against CPU after one step, 4
+# sequences (pairs) of the recipe's pipeline, each bound about ten times the
+# larger of the card against the CPU and the card against itself at 3e-7
+# (scripts/train_check.py gate kys kys 1 + gate keep_track keep_track 1;
+# NVIDIA H100 80GB HBM3, 700.00 W), the two readings beside each. KYS's gate
+# runs with the score jitter off, then on with its draws from one CPU
+# generator on both sides (KYS_GATE_JITTER); the readings of both cases
+# beside it (jitter off / on). No running statistic moves on either side
+# in KYS training, so those must be equal; no element of Adam's first step
+# was off by 1% of lr.
+TRAIN_KYS_GATE_BOUNDS = {"loss": 5e-6,             # 3.95e-7 / 3.13e-7; 3.95e-7 / 4.70e-7
+                         "stats": 0.0,             # 0; 0
+                         "grad": 6e-4,             # 6.14e-5 / 6.17e-5; 2.73e-5 / 2.68e-5
+                         "grad_median": 1.5e-5,    # 1.21e-6 / 1.28e-6; 2.90e-7 / 2.55e-7
+                         "step_share": 1e-4}       # 0%; 0%
+# KeepTrack trains the whole ResNet-50 on flat synthetic frames: rounding
+# flips ReLU kinks, and the worst leaf moves by 9.4e-2 on the card against
+# itself, so the loss terms, the statistics, the median leaf and Adam's step
+# carry this gate.
+TRAIN_KEEP_TRACK_GATE_BOUNDS = {"loss": 3e-4,          # 9.07e-6; 2.64e-5
+                                "stats": 7e-4,         # 6.92e-5; 6.00e-5
+                                "grad": 1.0,           # 5.53e-2; 9.40e-2
+                                "grad_median": 6e-2,   # 5.63e-3; 5.80e-3
+                                "step_share": 1.3e-2}  # 0.126%; 0.127%
+KYS_GATE_JITTER = {"jitter": True, "generator_device": "cpu"}
+
+
+def _running_stats(trainer, seeded):
+    """(the net's running statistics, those that differ from `seeded`)."""
+    state = trainer.net.state_dict()
+    stats = [k for k in state if k.endswith(("running_mean", "running_var"))]
+    return stats, [k for k in stats if not torch.equal(state[k], seeded[k])]
+
+
+def _train_matching_phase(tag, module, name):
+    """_train_recipe_run's checks and figures for KYS or KeepTrack, with
+    every trained parameter with a gradient moved and no other
+    (_moved_parameters). Returns (trainer, the seeded state on the card,
+    K1's launches)."""
+    trainer, _, peak, k1, seeded = _train_recipe_run(tag, module, name, TRAIN_MATCHING_SAMPLES)
+    seeded = _moved_parameters(tag, trainer, module, name, reached=True, seeded=seeded)
+    median = _step_report(tag, (trainer,), peak)
+    print(f"{tag}: {name} at {trainer.settings.output_sz}x{trainer.settings.output_sz}, "
+          f"{median:.2f} ms per step, peak device memory {peak / 2 ** 30:.2f} GiB on {_card()}",
+          flush=True)
+    return trainer, seeded, k1
+
+
+def phase_train_kys(tag="train_kys"):
+    """KYS through `run_training("kys", "kys")` at full width (8 sequences x
+    (3 train + 10 test) frames at 288x288, labels on the 18x18 motion grid,
+    the score jitter on; the DiMP part frozen and run without autograd, its
+    BatchNorms on the batch's statistics with the running ones kept; the
+    predictor over 9 propagation steps, its BatchNorms in eval mode; Adam on
+    the predictor alone): an epoch of TRAIN_SAMPLES sequences;
+    _train_recipe_run's checks, every predictor parameter with a gradient
+    moved, every other parameter and every running statistic of the net bit
+    for bit the seeded ones; ms per step, sequences/s, the upload, peak
+    memory and a profiled step."""
+    trainer, seeded, k1 = _train_matching_phase(tag, "kys", "kys")
+    trained = [n for n, p in trainer.net.named_parameters() if p.requires_grad]
+    check(trained and all(n.startswith("predictor.") for n in trained),
+          f"{tag}: trained parameters outside the predictor: "
+          f"{[n for n in trained if not n.startswith('predictor.')][:5]}")
+    stats, changed = _running_stats(trainer, seeded)
+    check(not changed, f"{tag}: running statistics moved: {changed[:5]}")
+    print(f"{tag}: only the predictor's {len(trained)} tensors trained; all {len(stats)} running "
+          f"statistics bit for bit the seeded ones", flush=True)
+    _profile_train_step(tag, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_train_keep_track(tag="train_keep_track"):
+    """KeepTrack's matching net through `run_training("keep_track",
+    "keep_track")` at full width (8 pairs of 288x288 frames from the
+    synthetic candidate dataset, K = 8, ResNet-50 to layer3 and the graph net
+    of ('self', 'cross') x 2 in train mode, 10 Sinkhorn passes, Adam on the
+    whole net): an epoch of TRAIN_SAMPLES pairs; _train_recipe_run's checks,
+    every parameter with a gradient moved, every running statistic of the
+    backbone (layer4, built and not run, bit for bit) and of the matcher's
+    MLPs moved; ms per step, pairs/s, peak memory and a profiled step."""
+    trainer, seeded, k1 = _train_matching_phase(tag, "keep_track", "keep_track")
+    stats, changed = _running_stats(trainer, seeded)
+    layer4 = [k for k in stats if k.startswith("feature_extractor.layer4")]
+    backbone = [k for k in stats if k.startswith("feature_extractor.") and k not in layer4]
+    mlps = [k for k in stats if k.startswith("matcher.")]
+    check(set(changed) == set(backbone) | set(mlps) and mlps and backbone,
+          f"{tag}: running statistics not moved: {sorted(set(backbone + mlps) - set(changed))[:5]}"
+          f", moved: {sorted(set(changed) - set(backbone + mlps))[:5]}")
+    print(f"{tag}: all {len(backbone)} backbone and {len(mlps)} matcher running statistics moved "
+          f"(layer4's {len(layer4)}, not run, bit for bit)", flush=True)
+    _profile_train_step(tag, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
 
 
 class PhaseClock:
@@ -3846,7 +4101,7 @@ def main():
         phase = at("dimp_profile")
         bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
         t_next = dimp_tracker.state.frame_num
-        phase_profile(dimp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        phase_profile(dimp_tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                       tag="dimp_profile")
         del dimp_tracker
         family = {}
@@ -3864,7 +4119,7 @@ def main():
         phase = at("superdimp_profile")
         tracker = family["superdimp"][1]
         t_next = tracker.state.frame_num
-        phase_profile(tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        phase_profile(tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                       tag="superdimp_profile")
         del family, tracker
         phase = at("tomp")
@@ -3875,7 +4130,7 @@ def main():
         phase_tomp_bf16_gate(tomp_spec32)
         phase = at("tomp_profile")
         t_next = tomp_tracker.state.frame_num
-        phase_profile(tomp_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        phase_profile(tomp_tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                       tag="tomp_profile")
         del tomp_spec32, tomp_tracker
         phase = at("tomp101")
@@ -3899,7 +4154,7 @@ def main():
                         tracker_cls=KYSTracker, compare=kys_compare)
         phase = at("kys_profile")
         t_next = kys_tracker.state.frame_num
-        check(phase_profile(kys_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        check(phase_profile(kys_tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                             tag=phase) == 0, "K1 launched on the KYS path under the profiler")
         del kys, kys_tracker
         phase = at("keep_track")
@@ -3910,7 +4165,7 @@ def main():
                         tracker_cls=KeepTrackTracker, compare=keep_track_compare)
         phase = at("keep_track_profile")
         t_next = kt_tracker.state.frame_num
-        check(phase_profile(kt_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        check(phase_profile(kt_tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                             tag=phase) == 0, "K1 launched on the KeepTrack path under the profiler")
         del kt, kt_tracker
         phase = at("keep_track_fast")
@@ -3925,7 +4180,7 @@ def main():
         phase = at("lwl_profile")
         t_next = lwl_tracker.state.frame_num
         check(phase_profile(lwl_tracker, [vos_frame(vos_bg, t)[0]
-                                          for t in range(t_next, t_next + 3)], tag=phase) == 0,
+                                          for t in _profile_range(t_next)], tag=phase) == 0,
               "K1 launched on the LWL path under the profiler")
         del lwl_tracker
         phase = at("lwl_multi")
@@ -3940,7 +4195,7 @@ def main():
         phase = at("rts_profile")
         t_next = rts_tracker.state.frame_num
         check(phase_profile(rts_tracker, [vos_frame(vos_bg, t)[0]
-                                          for t in range(t_next, t_next + 3)], tag=phase) == 0,
+                                          for t in _profile_range(t_next)], tag=phase) == 0,
               "K1 launched on the RTS path under the profiler")
         del rts_spec, rts_tracker
         phase = at("atom")
@@ -3949,7 +4204,7 @@ def main():
         phase_atom_gate(atom)
         phase = at("atom_profile")
         t_next = atom_tracker.state.frame_num
-        check(phase_profile(atom_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        check(phase_profile(atom_tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                             tag=phase) == 0, "K1 launched on the ATOM path under the profiler")
         del atom, atom_tracker
         for module, tag in (("atom_prob_ml", "atom_prob_ml"), ("default_vot", "atom_vot"),
@@ -3962,7 +4217,7 @@ def main():
         phase_eco_gate(eco)
         phase = at("eco_profile")
         t_next = eco_tracker.state.frame_num
-        check(phase_profile(eco_tracker, [dimp_frame(bg, t) for t in range(t_next, t_next + 3)],
+        check(phase_profile(eco_tracker, [dimp_frame(bg, t) for t in _profile_range(t_next)],
                             tag=phase) == 0, "K1 launched on the ECO path under the profiler")
         del eco_tracker
         phase = at("eco_mobile3")
@@ -4033,8 +4288,18 @@ def main():
         kernel["launches_by_path"]["train_lwl_gate"] = phase_train_gate(
             phase, ("lwl", "lwl_stage2"), TRAIN_LWL_GATE_BOUNDS)
         phase = at("train_rts_gate")
-        kernel["launches_by_path"]["train_rts_gate"] = phase_train_gate(
-            phase, ("rts", "rts50"), TRAIN_RTS_GATE_BOUNDS)
+        kernel["launches_by_path"]["train_rts_gate"] = phase_train_rts_gate(phase)
+        phase = at("train_kys")
+        kernel["launches_by_path"]["train_kys"] = phase_train_kys()
+        phase = at("train_keep_track")
+        kernel["launches_by_path"]["train_keep_track"] = phase_train_keep_track()
+        phase = at("train_kys_gate")
+        kernel["launches_by_path"]["train_kys_gate"] = phase_train_gate(
+            phase, ("kys", "kys"), TRAIN_KYS_GATE_BOUNDS, {"jitter": False}) + phase_train_gate(
+            f"{phase}/jitter", ("kys", "kys"), TRAIN_KYS_GATE_BOUNDS, KYS_GATE_JITTER)
+        phase = at("train_keep_track_gate")
+        kernel["launches_by_path"]["train_keep_track_gate"] = phase_train_gate(
+            phase, ("keep_track", "keep_track"), TRAIN_KEEP_TRACK_GATE_BOUNDS)
     except Exception as e:  # report which phase failed, then fail the run
         at(None)
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)

@@ -4,6 +4,7 @@ package gets from flax, and flax's truncated-normal initialiser)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -46,9 +47,13 @@ class BatchNorm(nn.Module):
     package's bf16 mode stores them) the step order is flax's,
     (x - mean) * (rsqrt(var + eps) * scale) + bias, with the multiplier in
     bf16 arithmetic: a bf16 input is normalised in bf16 throughout, a
-    float32 input in float32 around that bf16 multiplier."""
+    float32 input in float32 around that bf16 multiplier. With
+    `update_running` False (`frozen_running_stats`) train mode normalises
+    with the batch's statistics and leaves the running ones as they are,
+    as a flax BatchNorm in train mode whose new statistics are dropped."""
 
     momentum = 0.9
+    update_running = True
 
     def __init__(self, num_features: int, eps: float = 1e-5, dim: int = 1):
         super().__init__()
@@ -82,13 +87,41 @@ class BatchNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(axes)
         var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.copy_(self.momentum * self.running_mean
-                                    + (1.0 - self.momentum) * mean)
-            self.running_var.copy_(self.momentum * self.running_var
-                                   + (1.0 - self.momentum) * var)
+        if self.update_running:
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1.0 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1.0 - self.momentum) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within it, every BatchNorm of `module` leaves its running statistics
+    as they are (in train mode it still normalises with the batch's)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_running for m in bns]
+    for m in bns:
+        m.update_running = False
+    try:
+        yield module
+    finally:
+        for m, b in zip(bns, before):
+            m.update_running = b
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """`module` in eval mode inside, its own mode restored after."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 class ConvBlock(nn.Module):

@@ -10,7 +10,6 @@ the mask encoding before the decoder.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -23,7 +22,7 @@ from pytracking_tpu_torch.models.classifier.features import ResidualBottleneck
 from pytracking_tpu_torch.models.classifier.initializer import FilterInitializerLinear
 from pytracking_tpu_torch.models.classifier.linear_filter import LinearFilter
 from pytracking_tpu_torch.models.classifier.residual_modules import GNSteepestDescentHinge
-from pytracking_tpu_torch.models.layers.blocks import ConvBlock
+from pytracking_tpu_torch.models.layers.blocks import ConvBlock, eval_mode
 from pytracking_tpu_torch.models.lwl.decoder import _interp
 from pytracking_tpu_torch.models.lwl.label_encoder import SegBasicBlock, _heads
 from pytracking_tpu_torch.models.lwl.lwl_net import LWTLNet, _lwl_parts, init_weights
@@ -76,18 +75,6 @@ class LearnersFusion(nn.Module):
         return out.reshape(x.shape[:2] + out.shape[1:])
 
 
-@contextlib.contextmanager
-def _eval_mode(module: nn.Module):
-    """`module` in eval mode inside, its own mode restored after."""
-    modes = [(m, m.training) for m in module.modules()]
-    module.eval()
-    try:
-        yield module
-    finally:
-        for m, training in modes:
-            m.training = training
-
-
 class RTSNet(LWTLNet):
     """LWL's surface plus the classifier branch: `extract_classification_feat`
     (on `classification_layer`), `clf_get_filter`, `clf_classify`, and the
@@ -125,23 +112,6 @@ class RTSNet(LWTLNet):
         fused = self.fusion_module(enc, clf_enc)
         return self._decode(fused, backbone_feat, image_size), fused
 
-    def fallback_train_label(self, train_bb: torch.Tensor, grid: Tuple[int, int],
-                             image_size: Tuple[int, int]) -> torch.Tensor:
-        """Gaussian train labels for the hinge optimiser where none are
-        given: at each train box's centre on the classifier's (h, w) grid
-        (stride image_size / grid), sigma a quarter of sqrt(h * w), end-padded
-        by one cell for an even filter. train_bb (Ntr, Ns, 4) -> (Ntr, Ns,
-        h + pad, w + pad)."""
-        h, w = grid
-        ep = (self.classifier.filter_initializer.filter_size + 1) % 2
-        cx, cy = (train_bb[..., :2] + train_bb[..., 2:] / 2).reshape(-1, 2).unbind(-1)
-        # (y, x) on the grid, relative to its centre; sigma as a device
-        # tensor: no value crosses from the host
-        ctr = torch.stack([cy * (h / image_size[0]) - h / 2, cx * (w / image_size[1]) - w / 2], -1)
-        sig = torch.full_like(ctr, 0.25 * math.sqrt(h * w))
-        label = gauss_2d((h, w), sig, ctr, (ep, ep))
-        return label.reshape(train_bb.shape[:2] + label.shape[1:])
-
     def forward(self, train_imgs: torch.Tensor, test_imgs: torch.Tensor,
                 train_masks: torch.Tensor, train_bb: torch.Tensor,
                 train_label: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -164,8 +134,9 @@ class RTSNet(LWTLNet):
         te_clf = self.extract_classification_feat(te_bb)
 
         if train_label is None:
-            train_label = self.fallback_train_label(train_bb, tuple(tr_clf.shape[-2:]),
-                                                    image_size)
+            train_label = fallback_train_label(
+                train_bb, tuple(tr_clf.shape[-2:]), image_size,
+                self.classifier.filter_initializer.filter_size)
         clf_filter = self.classifier.get_filter(tr_clf, train_bb, train_label=train_label)
         clf_scores = self.classifier.classify(clf_filter, te_clf)
 
@@ -174,13 +145,31 @@ class RTSNet(LWTLNet):
         masks = []
         for i in range(test_imgs.shape[0]):
             enc = self.target_model.apply_target_model(filt, te_tm[i:i + 1])
-            with _eval_mode(self.clf_encoder):
+            with eval_mode(self.clf_encoder):
                 clf_enc, _ = self.clf_encoder(clf_scores[i:i + 1, :, 0])
             clf_enc = _interp(clf_enc.flatten(0, 1), enc.shape[-2:]).reshape(enc.shape)
             fused = self.fusion_module(enc, clf_enc)
             masks.append(self._decode(fused, {k: v[i] for k, v in te_bb.items()},
                                       image_size))
         return torch.stack(masks), clf_scores
+
+
+def fallback_train_label(train_bb: torch.Tensor, grid: Tuple[int, int],
+                         image_size: Tuple[int, int], filter_size: int) -> torch.Tensor:
+    """Gaussian train labels for the hinge optimiser where none are given:
+    at each train box's centre on the classifier's (h, w) grid (stride
+    image_size / grid), sigma a quarter of sqrt(h * w), end-padded by one
+    cell for an even filter. train_bb (Ntr, Ns, 4) -> (Ntr, Ns, h + pad,
+    w + pad)."""
+    h, w = grid
+    ep = (filter_size + 1) % 2
+    cx, cy = (train_bb[..., :2] + train_bb[..., 2:] / 2).reshape(-1, 2).unbind(-1)
+    # (y, x) on the grid, relative to its centre; sigma as a device tensor:
+    # no value crosses from the host
+    ctr = torch.stack([cy * (h / image_size[0]) - h / 2, cx * (w / image_size[1]) - w / 2], -1)
+    sig = torch.full_like(ctr, 0.25 * math.sqrt(h * w))
+    label = gauss_2d((h, w), sig, ctr, (ep, ep))
+    return label.reshape(train_bb.shape[:2] + label.shape[1:])
 
 
 def rts50(filter_size: int = 3, num_filters: int = 16, optim_iter: int = 5,

@@ -2,7 +2,8 @@
 pytracking_tpu/models/tcm/target_candidate_matching.py `DescriptorExtractor`,
 `TargetCandidateMatchingNetwork`, `target_candidate_matching_net_resnet50`):
 a ResNet-50 of its own to layer3, a descriptor conv sampled at the
-candidates, and the SuperGlue matcher."""
+candidates, and the SuperGlue matcher. The tracker calls the parts;
+`forward` is the training forward."""
 
 from __future__ import annotations
 
@@ -58,6 +59,21 @@ class TargetCandidateMatchingNetwork(nn.Module):
               valid1=None) -> dict:
         return self.matcher(img_coords0, img_coords1, desc0, desc1, scores0, scores1,
                             valid0=valid0, valid1=valid1)
+
+    def forward(self, img0, img1, tsm_coords0, tsm_coords1, img_coords0, img_coords1,
+                scores0, scores1) -> dict:
+        """The training forward: the frames img0, img1 (S, 3, H, W) in 0-255
+        through the backbone in two calls, the descriptors at the cells
+        tsm_coords0/1 (S, K, 2), and the matcher on them with the candidates'
+        image coordinates img_coords0/1 (S, K, 2) and scores0/1 (S, K). In
+        train mode the BatchNorms move their running statistics on each
+        call: the backbone's on img0 then img1, the keypoint encoder's on
+        frame 0's candidates then frame 1's, each graph layer's on set 0
+        then set 1."""
+        f0 = self.extract_backbone(img0.reshape((-1,) + img0.shape[-3:]))
+        f1 = self.extract_backbone(img1.reshape((-1,) + img1.shape[-3:]))
+        return self.matcher(img_coords0, img_coords1, self.get_descriptors(f0, tsm_coords0),
+                            self.get_descriptors(f1, tsm_coords1), scores0, scores1)
 
 
 @torch.no_grad()

@@ -63,15 +63,16 @@ class KYSNet(DiMPnet):
 def kysnet_res50(generator: Optional[torch.Generator] = None, device="cuda",
                  state_dim: int = 8, representation_predictor_dims: Sequence[int] = (64, 32),
                  conf_measure: str = "entropy", dimp_thresh: float = 0.05,
-                 max_displacement: int = 9) -> KYSNet:
+                 max_displacement: int = 9, optim_iter: int = 5) -> KYSNet:
     """KYS on `device`, weights drawn from `generator` (seed 0 when none is
-    given): DiMP-50's backbone, classifier and IoU-Net, and a response
-    predictor with an 8-channel state, (64, 32) representation convs, the
-    entropy confidence, a DiMP-score threshold of 0.05 and displacements up
-    to 9 cells."""
+    given): DiMP-50's backbone, classifier (`optim_iter` steepest-descent
+    steps: 5 when tracking, 3 in the training recipe) and IoU-Net, and a
+    response predictor with an 8-channel state, (64, 32) representation
+    convs, the entropy confidence, a DiMP-score threshold of 0.05 and
+    displacements up to 9 cells."""
     device = resolve_device(device)
     classifier = LinearFilter(FilterInitializerLinear(filter_size=FILTER_SIZE, feature_dim=512),
-                              _dimp_gn(), _r50_features())
+                              _dimp_gn(optim_iter), _r50_features())
     predictor = ResponsePredictor(state_dim=state_dim,
                                   representation_predictor_dims=representation_predictor_dims,
                                   conf_measure=conf_measure, dimp_thresh=dimp_thresh)

@@ -7,8 +7,8 @@ pytracking_tpu/run_training.py).
 The recipes: dimp {dimp50, dimp18, prdimp50, prdimp18, super_dimp,
 super_dimp_simple}, bbreg {atom, atom_paper, atom_prob_ml, atom_gmm_sampl},
 tomp {tomp50, tomp101}, tamos {tamos_resnet50, tamos_swin_base}, lwl
-{lwl_stage1, lwl_stage2, lwl_boxinit} and rts {rts50}
-(training/train_settings/<module>/<name>.py).
+{lwl_stage1, lwl_stage2, lwl_boxinit}, rts {rts50}, kys {kys} and
+keep_track {keep_track} (training/train_settings/<module>/<name>.py).
 
 Checkpoints go to <workspace>/checkpoints/<module>/<name>/epNNNN.ckpt
 (training/settings.py), and a rerun resumes from the latest. The device

@@ -1,7 +1,8 @@
 """Actors: the training loss on top of a net's forward (counterpart of
 pytracking_tpu/training/actors/tracking.py `make_dimp_actor`,
 `make_atom_actor`, `make_kldimp_actor`, `make_tomp_actor`,
-`make_tamos_actor`, `make_lwl_actor`, `make_rts_actor`, `make_lwl_box_actor`).
+`make_tamos_actor`, `make_lwl_actor`, `make_rts_actor`, `make_lwl_box_actor`,
+`make_kys_actor`, `make_tcm_actor`).
 
 An actor is called on a batch on the device and returns (loss, stats),
 both device tensors; the train step differentiates the loss with autograd
@@ -11,7 +12,8 @@ train_anno (Ntrain, S, 4), test_proposals (Ntest, S, P, 4), proposal_iou
 (Ntest, S, P), test_label (Ntest, S, h, w); PrDiMP's processing gives
 proposal_density and gt_density (Ntest, S, P) and test_label_density
 (Ntest, S, h, w) instead of proposal_iou and test_label. ToMP's,
-TaMOs's and the segmentation actors' are in their docstrings.
+TaMOs's, KYS's, the matcher's and the segmentation actors' are in their
+docstrings.
 
 The trainer puts the step's dropout seed in the batch as 'rng_seed' (a
 host int); the actors of nets with dropout seed their own generator on the
@@ -23,10 +25,15 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
+from pytracking_tpu_torch.models.kys.cost_volume import cost_volume_abs
+from pytracking_tpu_torch.models.layers.blocks import eval_mode, frozen_running_stats
 from pytracking_tpu_torch.models.loss.bbr_loss import giou_loss
 from pytracking_tpu_torch.models.loss.kl_regression import kl_regression, kl_regression_grid
 from pytracking_tpu_torch.models.loss.segmentation import lovasz_seg_loss
+from pytracking_tpu_torch.models.loss.target_candidate_matching import (
+    matching_metrics, target_candidate_matching_loss)
 from pytracking_tpu_torch.models.loss.target_classification import (
     lbhinge, tracking_classification_accuracy)
 
@@ -109,21 +116,29 @@ class KLDiMPActor:
         return loss, {"Loss/total": loss, "Loss/bb_ce": bb_ce, "Loss/target_clf": clf[-1]}
 
 
+def _reseeded(generator: Optional[torch.Generator], device, seed: int) -> torch.Generator:
+    """`generator`, or a new one where it is None or on another device,
+    seeded with `seed`. Seeding a device generator is a host-side state
+    change: no synchronisation."""
+    device = torch.device(device)
+    if generator is None or generator.device != device:
+        generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return generator
+
+
 class _DropoutActor:
     """An actor whose net draws dropout masks in train mode: a generator on
     the net's device, seeded per step with the batch's 'rng_seed' (0
-    without one). Seeding a device generator is a host-side state change:
-    no synchronisation."""
+    without one)."""
 
     def __init__(self, net):
         self.net = net
         self._generator: Optional[torch.Generator] = None
 
     def generator(self, batch: Dict[str, torch.Tensor]) -> torch.Generator:
-        device = next(self.net.parameters()).device
-        if self._generator is None or self._generator.device != device:
-            self._generator = torch.Generator(device=device)
-        self._generator.manual_seed(int(batch.get("rng_seed", 0)))
+        self._generator = _reseeded(self._generator, next(self.net.parameters()).device,
+                                    int(batch.get("rng_seed", 0)))
         return self._generator
 
 
@@ -212,8 +227,10 @@ class RTSActor:
     (weight 10), plus LBHinge of the classifier's test scores, cut to the
     labels' grid, on the Gaussian labels (weight 10). Batch: train_images,
     test_images, train_masks, test_masks as LWLActor's, train_anno (Ntr, S,
-    4), test_label (Nte, S, h, w). The stats: Loss/total, Loss/segm and
-    Loss/clf (unweighted)."""
+    4), test_label (Nte, S, h, w), and optionally clf_train_label (Ntr, S,
+    h', w'): the classifier's train labels, which the net otherwise makes
+    itself (rts_net.fallback_train_label). The stats: Loss/total,
+    Loss/segm and Loss/clf (unweighted)."""
 
     def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None):
         self.net = net
@@ -221,7 +238,8 @@ class RTSActor:
 
     def __call__(self, batch: Dict[str, torch.Tensor]):
         masks, clf_scores = self.net(batch["train_images"], batch["test_images"],
-                                     batch["train_masks"], batch["train_anno"])
+                                     batch["train_masks"], batch["train_anno"],
+                                     train_label=batch.get("clf_train_label"))
         loss_segm = lovasz_seg_loss(masks, batch["test_masks"])
         label = batch["test_label"]
         h, w = label.shape[-2:]
@@ -256,3 +274,172 @@ class LWLBoxActor:
         loss = self.loss_weight["segm_box"] * lovasz_seg_loss(masks, batch["train_masks"])
         return loss, {"Loss/total": loss,
                       "Stats/acc_box_train": _mask_iou(masks.detach(), batch["train_masks"])}
+
+
+def _masked_bce(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """KYS's is-target loss: the logits pred (S, 1, h, w) against target >
+    0.05, summed over the sequences where mask (S, 1, 1, 1) is 1, over
+    their cell count (at least 1)."""
+    t = (target > 0.05).to(pred.dtype)
+    loss = -(t * F.logsigmoid(pred) + (1 - t) * F.logsigmoid(-pred))
+    count = mask.sum() * (loss[0].numel() / mask[0].numel())
+    return (loss * mask).sum() / torch.clamp(count, min=1.0)
+
+
+class KYSActor:
+    """KYS's objective. The appearance model is frozen and runs without
+    autograd: the backbone on the train frames, then on the test frames,
+    with the batch's BatchNorm statistics in train mode and every running
+    statistic left as it is (the JAX actor drops the new ones), the filter
+    learnt on the train frames, and the scores of the test frames cut to the
+    labels' grid. Frames 1 and later have their scores jittered
+    (`jitter`, a DiMPScoreJittering, with a generator seeded by the sum of
+    the batch's jitter_seed). The predictor, its BatchNorms in eval mode as
+    the JAX actor calls it, seeds its state from frame 0's label at frame 1
+    and propagates it over frames 2 to T-1 on cost volumes of the
+    classification features. The loss: test_clf 0.01 and test_clf_orig 0.01
+    (LBHinge of the fused and the unthresholded response), is_target 0.1
+    and is_target_after_prop 0.1 (BCE of the state's target map before and
+    after the propagation), each the mean over frames 1 to T-1 with the
+    absent test frames masked out, and dimp_clf 1e-4 (LBHinge of the
+    jittered scores, no gradient). Batch: train_images (Ntr, S, 3, H, W),
+    train_anno (Ntr, S, 4), test_images (T, S, 3, H, W), test_label (T, S,
+    h, w), test_valid_image (T, S), or (1, S, T) as the loader collates the
+    sampler's per-sample vectors, and jitter_seed (S,) on the host. The
+    stats: Loss/total, Loss/test_clf, Loss/dimp_clf, Loss/is_target,
+    Loss/is_target_after_prop and ClfTrain/test_acc (frames 2 to T-1). Only
+    the predictor may train: a parameter outside it that requires a
+    gradient raises ValueError. `generator_device` places the jitter's
+    draws (the net's device by default)."""
+
+    def __init__(self, net, loss_weight: Optional[Dict[str, float]] = None, jitter=None,
+                 generator_device=None):
+        self.net = net
+        self.loss_weight = loss_weight or {"test_clf": 0.01, "dimp_clf": 0.0001,
+                                           "is_target": 0.1, "is_target_after_prop": 0.1,
+                                           "test_clf_orig": 0.01}
+        self.jitter = jitter
+        self.generator_device = generator_device
+        self._generator: Optional[torch.Generator] = None
+
+    def generator(self, batch: Dict[str, torch.Tensor]) -> torch.Generator:
+        """The jitter's generator, seeded with the sum of the batch's
+        jitter_seed (0 without one). The seeds stay on the host
+        (trainer.HOST_KEYS), so seeding reads no device value."""
+        device = self.generator_device if self.generator_device is not None \
+            else next(self.net.parameters()).device
+        seed = batch.get("jitter_seed")
+        self._generator = _reseeded(self._generator, device,
+                                    0 if seed is None else int(seed.sum()))
+        return self._generator
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        net, w = self.net, self.loss_weight
+        trained = [n for n, p in net.named_parameters()
+                   if p.requires_grad and not n.startswith("predictor.")]
+        if trained and torch.is_grad_enabled():
+            raise ValueError(f"KYSActor trains the predictor alone: {trained[:3]} require grad")
+        tr_im, te_im = batch["train_images"], batch["test_images"]
+        n_tr, S = tr_im.shape[:2]
+        T = te_im.shape[0]
+        valid = torch.ones(T, S, device=te_im.device)
+        if "test_valid_image" in batch:
+            valid = batch["test_valid_image"].to(torch.float32)
+            if valid.dim() == 3:
+                # the loader's collation of the per-sample vectors: (1, S, T)
+                valid = valid[0].t()
+        labels = batch["test_label"][:, :, None]                   # (T, S, 1, h, w)
+        h, wd = labels.shape[-2:]
+
+        with torch.no_grad(), frozen_running_stats(net):
+            tr_clf = net.extract_classification_feat(net.extract_backbone(tr_im.flatten(0, 1)))
+            filt = net.classifier.get_filter(tr_clf.reshape((n_tr, S) + tr_clf.shape[1:]),
+                                             batch["train_anno"])
+            te_clf = net.extract_classification_feat(net.extract_backbone(te_im.flatten(0, 1)))
+            motion = te_clf.reshape((T, S) + te_clf.shape[1:])
+            # an even filter gives a score grid one cell larger: cut to the labels
+            scores = net.classifier.classify(filt, motion)[..., :h, :wd]
+            motion = motion[..., :h, :wd]
+            if self.jitter is not None:
+                scores = torch.cat([scores[:1], self.jitter(scores[1:], labels[1:],
+                                                            self.generator(batch))])
+
+        def cost_volume(t):
+            return cost_volume_abs(motion[t], motion[t - 1], net.max_displacement,
+                                   kernel_size=net.cv_kernel_size)
+
+        def mask(t):
+            return valid[t][:, None, None, None]
+
+        with eval_mode(net.predictor):
+            fused, state, aux = net.predictor(cost_volume(1), None, scores[1],
+                                              init_label=labels[0], aux=True)
+            m1 = mask(1)
+            first = {"test_clf": lbhinge(fused * m1, labels[1] * m1),
+                     "test_clf_orig": lbhinge(aux["fused_score_orig"] * m1, labels[1] * m1),
+                     "is_target": _masked_bce(aux["is_target"], labels[0], m1),
+                     "is_target_after_prop": _masked_bce(aux["is_target_after_prop"],
+                                                         labels[1], m1)}
+            rest = {k: [] for k in first}
+            acc = []
+            for t in range(2, T):
+                fused, state, aux = net.predictor(cost_volume(t), state, scores[t], aux=True)
+                m_cur, m_prev = mask(t), mask(t - 1)
+                rest["test_clf"].append(lbhinge(fused * m_cur, labels[t] * m_cur))
+                rest["test_clf_orig"].append(lbhinge(aux["fused_score_orig"] * m_cur,
+                                                     labels[t] * m_cur))
+                rest["is_target"].append(_masked_bce(aux["is_target"], labels[t - 1], m_prev))
+                rest["is_target_after_prop"].append(
+                    _masked_bce(aux["is_target_after_prop"], labels[t], m_cur))
+                acc.append(tracking_classification_accuracy(fused[:, 0], labels[t, :, 0]))
+
+        # the JAX actor's fold: the first step's term and the mean of the rest
+        n_rest = max(T - 2, 0)
+        comb = {k: (v + torch.stack(rest[k]).mean() * n_rest) / max(T - 1, 1) if n_rest else v
+                for k, v in first.items()}
+        vm = valid[1:, :, None, None, None]
+        dimp_clf = lbhinge(scores[1:] * vm, labels[1:] * vm)
+        loss = sum(w.get(k, 0.0) * v for k, v in comb.items()) + w.get("dimp_clf", 0.0) * dimp_clf
+        test_acc = torch.stack(acc).mean() if acc else torch.zeros((), device=fused.device)
+        return loss, {"Loss/total": loss, "Loss/test_clf": comb["test_clf"],
+                      "Loss/dimp_clf": dimp_clf, "Loss/is_target": comb["is_target"],
+                      "Loss/is_target_after_prop": comb["is_target_after_prop"],
+                      "ClfTrain/test_acc": test_acc}
+
+
+class TCMActor:
+    """KeepTrack's candidate-matching objective: the balanced assignment NLL
+    of the Sinkhorn matrix against the ground-truth matches
+    (target_candidate_matching_loss), and the match recall and precision of
+    the predicted matches (each candidate of frame 1 matched to its most
+    likely candidate of frame 0, or to the dustbin where the dustbin is more
+    likely), all on the device. Batch: img0 / img1 (S, 3, H, W) in 0-255,
+    tsm_coords0/1 (S, K, 2) cells, img_coords0/1 (S, K, 2) image (x, y),
+    scores0/1 (S, K), gt_assignment (S, K, K), gt_matches0/1 (S, K). The
+    stats, under the JAX names: Loss/total, Loss/nll_pos, Loss/nll_neg,
+    Loss/num_matchable, Loss/num_unmatchable, Loss/sinkhorn_norm,
+    Loss/bin_score, match_recall and match_precision."""
+
+    def __init__(self, net, nll_balancing: float = 0.5):
+        self.net = net
+        self.nll_balancing = nll_balancing
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        preds = self.net(batch["img0"], batch["img1"], batch["tsm_coords0"],
+                         batch["tsm_coords1"], batch["img_coords0"], batch["img_coords1"],
+                         batch["scores0"], batch["scores1"])
+        la = preds["log_assignment"]
+        losses = target_candidate_matching_loss(la, batch["gt_assignment"],
+                                                batch["gt_matches0"], batch["gt_matches1"],
+                                                self.net.matcher.bin_score,
+                                                nll_balancing=self.nll_balancing)
+        inner = la[:, :-1, :-1]
+        matches1 = inner.argmax(dim=1)
+        matches1 = torch.where(la[:, -1, :-1] > inner.amax(dim=1), -1, matches1)
+        metrics = matching_metrics(matches1, batch["gt_matches1"])
+        stats = {"Loss/total": losses["total"], "Loss/nll_pos": losses["nll_pos"],
+                 "Loss/nll_neg": losses["nll_neg"], "Loss/num_matchable": losses["num_matchable"],
+                 "Loss/num_unmatchable": losses["num_unmatchable"],
+                 "Loss/sinkhorn_norm": losses["sinkhorn_norm"],
+                 "Loss/bin_score": losses["bin_score"], **metrics}
+        return losses["total"], stats

@@ -2,13 +2,14 @@
 resize, labels and proposals (counterpart of
 pytracking_tpu/training/processing.py `BaseProcessing`, `DiMPProcessing`,
 `ATOMProcessing`, `KLDiMPProcessing`, `ToMPProcessing`, `TaMOsProcessing`,
-`LWLProcessing`, `RTSProcessing`).
+`LWLProcessing`, `RTSProcessing`, `KYSProcessing`).
 Host-side numpy; the result is a dict of fixed-shape float32 arrays. The
 random draws come from the generators the sampler passes in.
 """
 
 from __future__ import annotations
 
+import math
 import random
 from typing import Optional
 
@@ -340,4 +341,130 @@ class TaMOsProcessing(ToMPProcessing):
         data["test_label"] = [t[0] for t in test]
         data["test_ltrb_target"] = [t[1] for t in test]
         data["test_sample_region"] = [t[2] for t in test]
+        return data
+
+
+class KYSProcessing(BaseProcessing):
+    """KYS's processing: a synthetic camera motion per frame (a uniform
+    centre offset and a log-normal size, the test frames' offset mirrored
+    where it moves the centre more than 2.5 box sizes from the previous
+    frame's, retried up to 10 times until enough of the crop lies in the
+    image), the crops, min-IoU proposals where `proposal_params` are given,
+    and Gaussian labels that are zero on the test frames where the target
+    is absent (test_visible x test_valid_anno), so the propagation module
+    learns to carry the target through occlusions. The label parameters'
+    `end_pad_if_even` (default True, the label one cell larger than the
+    feature grid for an even filter) is passed through."""
+
+    def __init__(self, search_area_factor, output_sz, center_jitter_param,
+                 scale_jitter_param, proposal_params=None, label_function_params=None,
+                 min_crop_inside_ratio=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.search_area_factor = search_area_factor
+        self.output_sz = output_sz
+        self.center_jitter_param = center_jitter_param
+        self.scale_jitter_param = scale_jitter_param
+        self.proposal_params = proposal_params
+        self.label_function_params = label_function_params
+        self.min_crop_inside_ratio = min_crop_inside_ratio
+
+    def _check_if_crop_inside_image(self, box, im_shape) -> bool:
+        """Whether more than min_crop_inside_ratio of the square crop around
+        the box (side ceil(sqrt(w h) * search_area_factor)) lies in the
+        image."""
+        x, y, w, h = [float(v) for v in box]
+        if w <= 0.0 or h <= 0.0:
+            return False
+        crop_sz = math.ceil(math.sqrt(w * h) * self.search_area_factor)
+        x1 = x + 0.5 * w - crop_sz * 0.5
+        y1 = y + 0.5 * h - crop_sz * 0.5
+        x2, y2 = x1 + crop_sz, y1 + crop_sz
+        w_inside = max(min(x2, im_shape[1]) - max(x1, 0), 0)
+        h_inside = max(min(y2, im_shape[0]) - max(y1, 0), 0)
+        crop_area = (x2 - x1) * (y2 - y1)
+        return crop_area > 0 and (w_inside * h_inside / crop_area) > self.min_crop_inside_ratio
+
+    def _generate_synthetic_motion(self, boxes, images, mode: str,
+                                   np_rng: np.random.RandomState):
+        """The jittered box per frame; [1, 1, 10, 10] where no try fits."""
+        out_boxes = []
+        for i in range(len(boxes)):
+            orig = np.asarray(boxes[i], np.float32)
+            jittered = np.array([1.0, 1.0, 10.0, 10.0], np.float32)
+            for _ in range(10):
+                size = orig[2:4] * np.exp(np_rng.randn(2)
+                                          * self.scale_jitter_param[mode + "_factor"])
+                max_offset = float(np.sqrt(size.prod())
+                                   * self.center_jitter_param[mode + "_factor"])
+                offset_factor = np_rng.rand(2) - 0.5
+                center = orig[0:2] + 0.5 * orig[2:4] + max_offset * offset_factor
+                if self.center_jitter_param.get(mode + "_limit_motion", False) and out_boxes:
+                    prev_c = out_boxes[-1][:2] + 0.5 * out_boxes[-1][2:]
+                    lim = float(np.sqrt(out_boxes[-1][2:].prod()) * 2.5)
+                    for d in range(2):
+                        if abs(center[d] - prev_c[d]) > lim:
+                            center[d] = orig[d] + 0.5 * orig[d + 2] \
+                                - max_offset * offset_factor[d]
+                cand = np.concatenate([center - 0.5 * size, size])
+                if self._check_if_crop_inside_image(cand, images[i].shape):
+                    jittered = cand
+                    break
+            out_boxes.append(jittered.astype(np.float32))
+        return out_boxes
+
+    def _generate_proposals(self, box, rng: random.Random, np_rng: np.random.RandomState):
+        """min-IoU perturbations of the box; their IoU mapped to [-1, 1]."""
+        p = self.proposal_params
+        num = p["boxes_per_frame"]
+        proposals = np.zeros((num, 4), np.float32)
+        gt_iou = np.zeros(num, np.float32)
+        for i in range(num):
+            proposals[i], gt_iou[i] = prutils.perturb_box(
+                np.asarray(box, np.float32), min_iou=p["min_iou"],
+                sigma_factor=p["sigma_factor"], rng=rng, np_rng=np_rng)
+        return proposals, gt_iou * 2 - 1
+
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        if self.transform["joint"] is not None:
+            data["train_images"], data["train_anno"] = self.transform["joint"](
+                image=data["train_images"], bbox=data["train_anno"], rng=rng, np_rng=np_rng)
+            data["test_images"], data["test_anno"] = self.transform["joint"](
+                image=data["test_images"], bbox=data["test_anno"], joint=False, rng=rng,
+                np_rng=np_rng)
+
+        for s in ("train", "test"):
+            jittered = self._generate_synthetic_motion(
+                [np.asarray(a, np.float32) for a in data[s + "_anno"]], data[s + "_images"],
+                s, np_rng)
+            crops, boxes = prutils.jittered_center_crop(
+                data[s + "_images"], jittered, data[s + "_anno"], self.search_area_factor,
+                self.output_sz)
+            crops, boxes = self.transform[s](image=crops, bbox=boxes, joint=False, rng=rng,
+                                             np_rng=np_rng)
+            data[s + "_images"] = [np.asarray(c, np.float32) for c in crops]
+            data[s + "_anno"] = [np.asarray(b, np.float32) for b in boxes]
+
+        if self.proposal_params:
+            proposals, gt_iou = zip(*[self._generate_proposals(a, rng, np_rng)
+                                      for a in data["test_anno"]])
+            data["test_proposals"] = list(proposals)
+            data["proposal_iou"] = list(gt_iou)
+
+        if self.label_function_params is not None:
+            p = self.label_function_params
+
+            def label(a):
+                return prutils.gaussian_label_function(
+                    np.asarray(a, np.float32)[None], p["sigma_factor"], p["kernel_sz"],
+                    p["feature_sz"], self.output_sz,
+                    end_pad_if_even=p.get("end_pad_if_even", True))[0]
+
+            n_test = len(data["test_anno"])
+            visible = np.asarray(data.get("test_visible", np.ones(n_test)), np.float32)
+            valid = np.asarray(data.get("test_valid_anno", np.ones(n_test)), np.float32)
+            absent = 1.0 - visible * valid
+            data["train_label"] = [label(a) for a in data["train_anno"]]
+            data["test_label"] = [label(a) * (1.0 - absent[i])
+                                  for i, a in enumerate(data["test_anno"])]
         return data

@@ -31,13 +31,16 @@ from pytracking_tpu_torch.training.loader import LTRLoader
 from pytracking_tpu_torch.training.optim import adam_per_module
 from pytracking_tpu_torch.utils.device import ieee_float32
 
-IMAGE_KEYS = ("train_images", "test_images")
+IMAGE_KEYS = ("train_images", "test_images", "img0", "img1")
+# read by the actors on the host (KYS's jitter seeds): kept as CPU tensors
+HOST_KEYS = ("jitter_seed",)
 
 
 def batch_to_device(batch: dict, device) -> dict:
     """A loader's batch -> device tensors (numeric arrays only), uploaded
-    from pinned memory without blocking on a card; the images go NHWC ->
-    NCHW on the device."""
+    from pinned memory without blocking on a card; the images (IMAGE_KEYS)
+    go (..., H, W, 3) -> (..., 3, H, W) on the device, and HOST_KEYS stay
+    CPU tensors."""
     device = torch.device(device)
     pin = device.type == "cuda"
     out = {}
@@ -45,10 +48,13 @@ def batch_to_device(batch: dict, device) -> dict:
         if not isinstance(v, np.ndarray) or v.dtype == object:
             continue            # strings, and TaMOs's per-frame {obj_id: box} dicts
         t = torch.from_numpy(np.ascontiguousarray(v))
+        if k in HOST_KEYS:
+            out[k] = t
+            continue
         if pin:
             t = t.pin_memory()
         t = t.to(device, non_blocking=pin)
-        out[k] = t.permute(0, 1, 4, 2, 3).contiguous() if k in IMAGE_KEYS else t
+        out[k] = t.movedim(-1, -3).contiguous() if k in IMAGE_KEYS else t
     return out
 
 
@@ -205,7 +211,10 @@ class LTRTrainer(BaseTrainer):
             self.step_log.append({"loader": loader.name, "epoch": self.epoch, "step": i,
                                   "loss": loss, "wait_s": t1 - t0, "upload_s": t_up - t1,
                                   "step_s": t2 - t1})
-            bs = batch["train_images"].shape[1]
+            # sequences: frame-major train_images (N, S, ...), or the
+            # matcher's sample-major pairs img0 (S, ...)
+            bs = batch["train_images"].shape[1] if "train_images" in batch \
+                else batch["img0"].shape[0]
             num_frames += bs
             for k, v in stats.items():
                 meters.setdefault(k, AverageMeter()).update(v, bs)
@@ -227,16 +236,17 @@ class LTRTrainer(BaseTrainer):
 def train_recipe(settings, sampler, net, actor, base_lr: float, module_lrs: Dict[str, float],
                  max_epochs: int, device, freeze_unlisted: bool = False,
                  milestones: Optional[Sequence[int]] = None,
-                 weight_decay: Optional[float] = None, step_size: int = 15) -> "LTRTrainer":
+                 weight_decay: Optional[float] = None, step_size: int = 15,
+                 stack_dim: int = 1) -> "LTRTrainer":
     """A recipe's training run: `net` on `device`, `actor(net)` on batches of
     settings.batch_size from `sampler` (settings.num_workers loader
-    threads), Adam per module (training/optim.adam_per_module, decayed by 0.2
+    threads; frame-major, or sample-major with stack_dim 0), Adam per module (training/optim.adam_per_module, decayed by 0.2
     every `step_size` epochs, or at the `milestones` epochs; AdamW with
     `weight_decay`), and an LTRTrainer that resumes from the latest
     checkpoint under settings.checkpoint_dir and restarts after a failure.
     Returns the trainer after max_epochs."""
     loader = LTRLoader("train", sampler, training=True, batch_size=settings.batch_size,
-                       num_workers=settings.num_workers)
+                       num_workers=settings.num_workers, stack_dim=stack_dim)
     net = net.to(device)
     optimizer, scheduler = adam_per_module(net, base_lr, module_lrs,
                                            steps_per_epoch=len(loader), step_size=step_size,

@@ -265,7 +265,7 @@ TRAIN_RECIPES = (("dimp", "dimp50"), ("dimp", "dimp18"), ("dimp", "prdimp50"),
                  ("bbreg", "atom_gmm_sampl"), ("tomp", "tomp50"), ("tomp", "tomp101"),
                  ("tamos", "tamos_resnet50"), ("tamos", "tamos_swin_base"),
                  ("lwl", "lwl_stage1"), ("lwl", "lwl_stage2"), ("lwl", "lwl_boxinit"),
-                 ("rts", "rts50"))
+                 ("rts", "rts50"), ("kys", "kys"), ("keep_track", "keep_track"))
 
 
 def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):

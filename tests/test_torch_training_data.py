@@ -3,7 +3,8 @@ the CPU: transforms, processing_utils, DiMPProcessing, KLDiMPProcessing
 (PrDiMP's mixture proposals and label densities), ATOMProcessing,
 DiMPSampler and ATOMSampler over the synthetic video dataset, the loader's
 collation, and the loader's shapes (the twin of tests/test_training.py's
-pipeline tests).
+pipeline tests); later slices' ToMP, TaMOs, LWL, RTS and KYS processing
+and samplers.
 
 The JAX pipeline draws from the global `random` / `np.random`; the port's
 from a `random.Random` and a `np.random.RandomState` passed down. Seeded
@@ -710,3 +711,135 @@ def test_lwl_sampler_matches_jax():
         assert len(a["train_masks"]) == 1 and len(a["test_masks"]) == 3
     _equal(t_stack_dim1(got), j_stack_dim1(ref))
     assert t_stack_dim1(got)["test_masks"].shape == (3, 4, 96, 96)
+
+
+# ---------------------------------------------------------------- KYS
+
+def _kys_processing(module, tfm, end_pad=True, proposals=True, output_sz=128):
+    label_params = {"feature_sz": 8, "sigma_factor": 0.05, "kernel_sz": 4}
+    if not end_pad:
+        label_params["end_pad_if_even"] = False
+    return module.KYSProcessing(
+        search_area_factor=5.0, output_sz=output_sz,
+        center_jitter_param={"train_factor": 3.0, "train_mode": "uniform", "test_factor": 4.5,
+                             "test_limit_motion": True, "test_mode": "uniform"},
+        scale_jitter_param={"train_factor": 0.25, "test_factor": 0.3},
+        proposal_params={"boxes_per_frame": 8, "min_iou": 0.3,
+                         "sigma_factor": [0.01, 0.05, 0.1, 0.2, 0.3]} if proposals else None,
+        label_function_params=label_params, min_crop_inside_ratio=0.1,
+        train_transform=tfm.Transform(tfm.BrightnessJitter(0.2)),
+        joint_transform=tfm.Transform(tfm.ToGrayscale(probability=0.3)))
+
+
+@pytest.mark.parametrize("end_pad", [True, False])
+def test_kys_processing_matches_jax(end_pad):
+    """KYSProcessing on tests/test_data_pipeline_round2.py's case (two
+    frames of the test sequence absent, a target near the image's corner
+    so that the crop-inside retries and the motion limit act), with the
+    labels end-padded (9x9 on the 8x8 grid) or not (8x8): crops, boxes,
+    proposals and labels bit for bit over three seeds, the absent frames'
+    labels zero."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu_torch.training import processing as t_processing
+
+    ims = _images(7, n=7, H=120, W=160)
+    visible = np.array([1, 1, 0, 0, 1], np.float32)
+    for seed in range(3):
+        data = lambda: {"train_images": list(ims[:2]),
+                        "train_anno": [np.array([40.0, 30.0, 30.0, 24.0])] * 2,
+                        "test_images": list(ims[2:]),
+                        "test_anno": [np.array([4.0 + 3 * i, 2.0, 30.0, 24.0])
+                                      for i in range(5)],
+                        "test_visible": visible.copy(),
+                        "test_valid_anno": np.ones(5, np.float32), "dataset": "d"}
+        gens = _gens(seed)
+        ref = _kys_processing(j_processing, j_tfm, end_pad, proposals=seed != 2)(data())
+        got = _kys_processing(t_processing, t_tfm, end_pad, proposals=seed != 2)(
+            data(), gens["rng"], gens["np_rng"])
+        _equal(got, ref)
+        assert got["test_label"][0].shape == ((9, 9) if end_pad else (8, 8))
+        assert got["test_label"][2].max() == 0.0 and got["test_label"][3].max() == 0.0
+        assert got["test_label"][0].max() > 0.1
+        assert ("test_proposals" in got) == (seed != 2)
+
+
+class _OccDataset:
+    """tests/test_data_pipeline_round2.py's: 20 visible, 10 occluded, 30
+    visible frames."""
+
+    def get_name(self):
+        return "occ"
+
+    def is_video_sequence(self):
+        return True
+
+    def has_occlusion_info(self):
+        return True
+
+    def get_num_sequences(self):
+        return 1
+
+    def get_sequence_info(self, seq_id):
+        vis = np.ones(60)
+        ratio = np.ones(60)
+        ratio[20:30] = 0.2
+        vis[20:30] = 0
+        return {"visible": vis, "visible_ratio": ratio,
+                "bbox": [np.array([30.0, 30, 20, 20])] * 60}
+
+    def get_frames(self, seq_id, ids, info):
+        frames = [np.full((64, 64, 3), 100 + i, np.float32) for i in ids]
+        anno = {"bbox": [np.array([30.0, 30, 20, 20]) for _ in ids],
+                "visible": np.array([info["visible"][i] for i in ids]),
+                "valid": np.ones(len(ids)),
+                "visible_ratio": np.array([info["visible_ratio"][i] for i in ids])}
+        return frames, anno, None
+
+
+@pytest.mark.parametrize("case", ["occlusion", "synthetic"])
+def test_kys_sampler_matches_jax(case):
+    """KYSSampler bit for bit from the same seeds, and the collation: on
+    tests/test_data_pipeline_round2.py's occlusion dataset without
+    processing (the sub-sequences span the occlusion: visible and occluded
+    test frames, the occluded ones' labels zero once processed), and on the
+    synthetic videos with KYSProcessing (sequences of 20 frames, so that
+    some test frames run past the end: padded with frame 0 and marked in
+    test_valid_image)."""
+    from pytracking_tpu.training import processing as j_processing
+    from pytracking_tpu.training import transforms as j_tfm
+    from pytracking_tpu.training.datasets.synthetic_video import SyntheticVideoDataset
+    from pytracking_tpu.training.loader import _stack_dim1 as j_stack_dim1
+    from pytracking_tpu.training.sampler import KYSSampler
+    from pytracking_tpu_torch.training import processing as t_processing
+    from pytracking_tpu_torch.training.sampler import KYSSampler as TKYSSampler
+
+    info = {"num_train_frames": 2, "num_test_frames": 8, "max_train_gap": 30,
+            "allow_missing_target": True, "min_fraction_valid_frames": 0.5, "mode": "Sequence"}
+    if case == "occlusion":
+        j_data, t_data, j_proc, t_proc = [_OccDataset()], [_OccDataset()], None, None
+    else:
+        j_data = [SyntheticVideoDataset(num_sequences=4, seq_len=20, H=120, W=160)]
+        t_data = [TSyntheticVideoDataset(num_sequences=4, seq_len=20, H=120, W=160)]
+        j_proc = _kys_processing(j_processing, j_tfm, end_pad=False, proposals=False,
+                                 output_sz=64)
+        t_proc = _kys_processing(t_processing, t_tfm, end_pad=False, proposals=False,
+                                 output_sz=64)
+    j = KYSSampler(j_data, samples_per_epoch=6, sequence_sample_info=info, processing=j_proc,
+                   sample_occluded_sequences=True)
+    t = TKYSSampler(t_data, samples_per_epoch=6, sequence_sample_info=info, processing=t_proc,
+                    sample_occluded_sequences=True, seed=4)
+    random.seed(4)
+    np.random.seed(4)
+    ref, got = [j[i] for i in range(6)], [t[i] for i in range(6)]
+    for a, b in zip(got, ref):
+        _equal(a, b)
+        assert len(a["test_images"]) == 8 and a["test_valid_image"].shape == (8,)
+    if case == "occlusion":
+        assert any((a["test_visible"] == 0).any() and (a["test_visible"] == 1).any()
+                   for a in got)
+    else:
+        assert any((a["test_valid_image"] == 0).any() for a in got)
+        assert got[0]["test_label"][0].shape == (8, 8)
+    _equal(t_stack_dim1(got), j_stack_dim1(ref))
+    assert t_stack_dim1(got)["test_valid_image"].shape == (1, 6, 8)
