@@ -163,7 +163,20 @@ Phases (any failure exits non-zero and prints no result line):
               |d precision-curve AUC| <= 2.0, f32 AUC > 30), harness_pool
               (`run_dataset(threads=2)` of DiMP-18 in spawned workers against
               threads=0, each worker's peak device memory).
- 30. train_dimp50  DiMP-50 training through `run_training("dimp", "dimp50")`
+ 30. checkpoint  trained-network loading: upstream-format `.pth.tar` files of
+              DiMP-50 and TaMOs-R50 at full width (nets drawn from
+              CHECKPOINT_SEED, a pickled NetConstructor stand-in beside
+              `net` and `net_type`) ingested by the port's
+              `ingest_checkpoint` into an empty network path, then built by
+              `dimp50` (f32) and `tamos_resnet50` (bf16) on the card: each
+              net equal to its source bit for bit and unlike the fallback
+              seed's; 20 tracked frames each with one host synchronisation
+              per frame, K1 6 per TaMOs frame and 0 on DiMP, each counted in
+              its own run; `dimp_gate` (3 frames) and TaMOs's bf16 `gate` on
+              the loaded specs at their bounds; file sizes, ingest and load
+              times. Every other phase runs with PYTRACKING_TPU_TORCH_NETWORK_PATH
+              pinned to an empty directory, so its nets are the seeded ones.
+ 31. train_dimp50  DiMP-50 training through `run_training("dimp", "dimp50")`
               at full width (8 sequences x 3 + 3 frames at 288x288, 8
               proposals, the recipe's synthetic data and per-module Adam,
               IEEE float32; no Pallas kernel on this path: cuDNN and cuBLAS
@@ -174,11 +187,11 @@ Phases (any failure exits non-zero and prints no result line):
               restart, one host synchronisation per step, K1 not launched;
               ms per step, sequences/s, the loader's wait, peak memory and a
               profile of one step;
- 31. train_gate  one train step of the seeded DiMP-50 on the card and on the
+ 32. train_gate  one train step of the seeded DiMP-50 on the card and on the
               CPU from equal weights and one seeded batch of 4 sequences:
               loss, gradients, running statistics and Adam's step within
               the TRAIN_* bounds.
- 32. train_prdimp50  PrDiMP-50 training through
+ 33. train_prdimp50  PrDiMP-50 training through
               `run_training("dimp", "prdimp50")` at full width (8 sequences
               x 3 + 3 frames at 288x288, 128 mixture proposals per test
               frame, the KL objective on the IoU-Net and on every Newton
@@ -187,23 +200,23 @@ Phases (any failure exits non-zero and prints no result line):
               synchronisation per step after the first, K1 not launched;
               ms per step, sequences/s, the loader's wait, the upload, peak
               memory and a profile of one step;
- 33. train_atom  ATOM's IoU-Net training through
+ 34. train_atom  ATOM's IoU-Net training through
               `run_training("bbreg", "atom")` (ResNet-18 frozen, its
               BatchNorm in train mode), as train_prdimp50, and the backbone's
               weights bit for bit unchanged, its running statistics moved;
- 34. train_recipes  dimp18, prdimp18, super_dimp, super_dimp_simple,
+ 35. train_recipes  dimp18, prdimp18, super_dimp, super_dimp_simple,
               atom_paper, atom_prob_ml, atom_gmm_sampl through
               `run_training`, 3 steps each at full width: the same checks;
               ms per step and peak memory;
- 35. train_prdimp_gate, train_atom_gate  `train_gate` for PrDiMP-50 and
+ 36. train_prdimp_gate, train_atom_gate  `train_gate` for PrDiMP-50 and
               ATOM (4 sequences each, the TRAIN_* bounds).
- 36. train_tomp50, train_tamos  ToMP-50 and TaMOs-ResNet50 training (an
+ 37. train_tomp50, train_tamos  ToMP-50 and TaMOs-ResNet50 training (an
               epoch of 6 steps each; dropout on, the backbone's BatchNorms
               frozen); train_recipes also runs tomp101 and tamos_swin_base;
               train_tomp_gate, train_tamos_gate (dropout 0, 4 sequences);
               train_dropout (ToMP-50's step twice on one dropout seed, bit
               for bit).
- 37. train_lwl  LWL stage 2 through `run_training("lwl", "lwl_stage2")` at
+ 38. train_lwl  LWL stage 2 through `run_training("lwl", "lwl_stage2")` at
               full width (8 sequences x 1 + 3 frames at 352x352 with their
               masks, the backbone frozen with its BatchNorms in train mode,
               the target model refined twice after each test frame and
@@ -211,16 +224,16 @@ Phases (any failure exits non-zero and prints no result line):
               an epoch of 6 steps: the checks of train_prdimp50, the
               backbone's weights bit for bit and its running statistics
               moved; train_recipes also runs lwl_stage1 and lwl_boxinit;
- 38. train_rts  RTS-50 through `run_training("rts", "rts50")` (8
+ 39. train_rts  RTS-50 through `run_training("rts", "rts50")` (8
               sequences, masks and the classifier's labels; the backbone from
               layer2 on trained), as train_lwl;
- 39. train_lwl_gate, train_rts_gate  `train_gate` for LWL stage 2 and
+ 40. train_lwl_gate, train_rts_gate  `train_gate` for LWL stage 2 and
               RTS-50 (4 sequences each, TRAIN_LWL_GATE_BOUNDS /
               TRAIN_RTS_GATE_BOUNDS); then RTS's classifier branch alone:
               the card's filter and scores fitted from the CPU's
               classification features against the CPU's fit
               (TRAIN_RTS_CLASSIFIER_GATE).
- 40. train_kys  KYS through `run_training("kys", "kys")` at full width (8
+ 41. train_kys  KYS through `run_training("kys", "kys")` at full width (8
               sequences x (3 + 10) frames at 288x288, the score jitter on,
               the DiMP part frozen without autograd, its BatchNorms on batch
               statistics with the running ones kept, 9 predictor steps), an
@@ -228,13 +241,13 @@ Phases (any failure exits non-zero and prints no result line):
               predictor trained and every predictor parameter with a
               gradient moved, every other parameter and every running
               statistic bit for bit, ms per step and a profiled step;
- 41. train_keep_track  KeepTrack's matching net through
+ 42. train_keep_track  KeepTrack's matching net through
               `run_training("keep_track", "keep_track")` (8 pairs at
               288x288, K = 8, the whole net trained in train mode), an epoch
               of 6 steps: every parameter with a gradient moved, every
               running statistic of the backbone (layer4 not run) and of the
               matcher's MLPs moved;
- 42. train_kys_gate, train_keep_track_gate  `train_gate` for KYS (score
+ 43. train_kys_gate, train_keep_track_gate  `train_gate` for KYS (score
               jitter off, then on with one CPU generator's draws on both
               sides) and KeepTrack (4 sequences or pairs each,
               TRAIN_KYS_GATE_BOUNDS / TRAIN_KEEP_TRACK_GATE_BOUNDS).
@@ -2539,18 +2552,23 @@ HARNESS_POOL_PX = 1.0                # threads=2 boxes against threads=0
 HARNESS_VOS_PROB = 1e-3              # route PNGs may differ only this close to 0.5
 
 
+def _empty_dir(*parts):
+    """An empty directory under .chip_scratch/ of the checkout."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch", *parts)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
 def _harness_root(tag):
     """An empty results root for a harness phase (PYTRACKING_TPU_TORCH_ROOT)
     under .chip_scratch/ of the checkout: no file of an earlier run can make
     the harness skip a sequence."""
-    import shutil
-
     from pytracking_tpu_torch.evaluation import environment
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch", "harness",
-                        tag)
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
+    root = _empty_dir("harness", tag)
     os.environ["PYTRACKING_TPU_TORCH_ROOT"] = root
     environment.reset_env_settings()
     return root
@@ -2959,6 +2977,156 @@ def phase_harness_pool(tag="harness_pool"):
     check(len(reports) == len(ds), f"{tag}: {len(reports)} jobs reported")
     check(worst <= HARNESS_POOL_PX, f"{tag}: pooled boxes {worst} px from threads=0")
 
+# ---------------------------------------------------------------- trained networks
+
+CHECKPOINT_SEED = 7                  # the source nets; the parameter modules' fallback draws 0
+CHECKPOINT_FRAMES = 20
+CHECKPOINT_GATE_FRAMES = 3
+
+
+def _network_path(path):
+    """Points the parameter modules at the network directory `path`."""
+    from pytracking_tpu_torch.evaluation import environment
+
+    os.environ["PYTRACKING_TPU_TORCH_NETWORK_PATH"] = path
+    environment.reset_env_settings()
+
+
+def _checkpoint_writer():
+    """scripts/checkpoint_check.py, which writes upstream-format files."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "checkpoint_check.py")
+    spec = importlib.util.spec_from_file_location("checkpoint_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _track_counted(tag, tracker, frames):
+    """Tracks `frames`, each with its host synchronisations counted; fails
+    unless each frame synchronises once. Returns the outputs."""
+    outs, ms, syncs = [], [], []
+    for im in frames:
+        t0 = time.perf_counter()
+        out, caught = _count_syncs(lambda im=im: tracker.track(im))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        syncs.append(len(caught))
+    print(f"{tag}: {len(frames)} frames, median {np.median(ms):.3f} ms/frame (sync debug mode "
+          f"on); host synchronisations per frame {syncs} (target 1)", flush=True)
+    check(all(n == 1 for n in syncs), f"{tag}: not one host synchronisation per frame: {syncs}")
+    return outs
+
+
+def _same_weights(tag, net, ref, fallback):
+    """The loaded `net` equals the source state_dict `ref` bit for bit and
+    differs from the fallback seed's net in every convolution and linear
+    weight, the tensors the seed draws (biases start at 0, BatchNorms at
+    the identity, the optimisers' parameters at their structured values)."""
+    got = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    check(set(got) == set(ref), f"{tag}: loaded keys differ from the source's")
+    unequal = [k for k in ref if not torch.equal(got[k], ref[k])]
+    seeded = {k: v.detach().cpu() for k, v in fallback.state_dict().items()}
+    drawn = [k for k in ref if ref[k].dim() >= 2]
+    same_as_seed = [k for k in drawn if torch.equal(got[k], seeded[k])]
+    print(f"{tag}: loaded net against its source: {len(ref) - len(unequal)} of {len(ref)} "
+          f"tensors bit for bit; against the fallback seed's net: {len(same_as_seed)} of its "
+          f"{len(drawn)} drawn weights equal", flush=True)
+    check(not unequal, f"{tag}: loaded tensors differ from the source: {unequal[:5]}")
+    check(not same_as_seed, f"{tag}: loaded weights equal the fallback's: {same_as_seed[:5]}")
+
+
+def phase_checkpoint(dimp_fallback, tamos_fallback, tag="checkpoint"):
+    """Trained-network loading on the card. Upstream-format `.pth.tar` files
+    of DiMP-50 and TaMOs-R50 at full width (nets drawn from CHECKPOINT_SEED;
+    `net`, `net_type` and a pickled NetConstructor stand-in, as upstream's
+    trainer writes them; scripts/checkpoint_check.py) go through the port's
+    ingest entry point into an empty network path; `dimp50` (f32) and
+    `tamos_resnet50` (bf16) are then built by their parameter modules on the
+    card. Each loaded net equals its source bit for bit and differs from the
+    fallback seed's (`dimp_fallback`, `tamos_fallback`: the seeded specs of
+    the `dimp` and `main` phases); each tracks CHECKPOINT_FRAMES frames with
+    one host synchronisation per frame, K1 6 per frame on TaMOs and 0 on
+    DiMP, each counted in its own run; the card-vs-CPU gates (`dimp_gate`
+    over CHECKPOINT_GATE_FRAMES frames, TaMOs's bf16 `gate`) hold at their
+    bounds on the loaded specs. Returns K1's launches by path."""
+    from pytracking_tpu_torch import ingest_checkpoint
+    from pytracking_tpu_torch.trackers.dimp import DiMPTracker
+    from pytracking_tpu_torch.trackers.tamos import TaMOsTracker
+
+    writer = _checkpoint_writer()
+    upstream, net_dir = _empty_dir("checkpoint", "upstream"), _empty_dir("checkpoint", "networks")
+    seeded_dir = os.environ["PYTRACKING_TPU_TORCH_NETWORK_PATH"]
+    sources, launches = {}, {}
+    for family, net_type in (("dimp50", "DiMPnet"), ("tamos_resnet50", "TaMOsNet")):
+        t0 = time.perf_counter()
+        src = writer.seeded_net(family, CHECKPOINT_SEED).state_dict()
+        path = os.path.join(upstream, f"{family}.pth.tar")
+        size = writer.write_upstream_checkpoint(
+            path, ingest_checkpoint.REGISTRY[family][0], src, net_type, fun_name=family)
+        t1 = time.perf_counter()
+        ingest_checkpoint.main([path, "--out_dir", net_dir])
+        t2 = time.perf_counter()
+        out = os.path.join(net_dir, ingest_checkpoint.REGISTRY[family][1] + ".pth")
+        print(f"{tag}: {family}: upstream file {size} bytes ({len(src)} port tensors; written "
+              f"in {t1 - t0:.2f} s with its seeded net), ingested in {t2 - t1:.2f} s into "
+              f"{os.path.getsize(out)} bytes", flush=True)
+        sources[family] = src
+    try:
+        _network_path(net_dir)
+        t0 = time.perf_counter()
+        dimp = dimp_spec("dimp50")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tamos = importlib.import_module("pytracking_tpu_torch.parameter.tamos.tamos_resnet50"
+                                        ).parameters(device="cuda", dtype=torch.bfloat16, seed=0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        _network_path(seeded_dir)
+    print(f"{tag}: loaded through the parameter modules on the card: dimp50 f32 in "
+          f"{t1 - t0:.2f} s, tamos_resnet50 bf16 in {t2 - t1:.2f} s", flush=True)
+    _same_weights(f"{tag}/dimp50", dimp.net, sources["dimp50"], dimp_fallback.net)
+    _same_weights(f"{tag}/tamos_resnet50", tamos.net, sources["tamos_resnet50"],
+                  tamos_fallback.net)
+
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    tracker = DiMPTracker(dimp.params, dimp.net, device="cuda")
+    tracker.initialize(dimp_frame(bg, 0), DIMP_INIT)
+    _k1_zero()
+    outs = _track_counted(f"{tag}/dimp50", tracker,
+                          [dimp_frame(bg, t) for t in range(1, CHECKPOINT_FRAMES + 1)])
+    launches["checkpoint_dimp50"] = _k1_path(f"{tag}/dimp50")
+    for out in outs:
+        check(len(out["target_bbox"]) == 4 and all(math.isfinite(v) for v in out["target_bbox"])
+              and math.isfinite(out["max_score"]), f"{tag}/dimp50: bad output {out}")
+    print(f"{tag}/dimp50: flags {collections.Counter(o['flag'] for o in outs)}; last box "
+          f"{outs[-1]['target_bbox']}", flush=True)
+    del tracker
+
+    info = {"init_bbox": {"1": [200, 150, 60, 80], "2": [400, 260, 80, 60]},
+            "init_object_ids": ["1", "2"], "object_ids": ["1", "2"]}
+    tracker = TaMOsTracker(tamos.params, tamos.net, device="cuda")
+    tracker.initialize(synthetic_frame(bg, 0), info)
+    _k1_zero()
+    outs = _track_counted(f"{tag}/tamos_resnet50", tracker,
+                          [synthetic_frame(bg, t) for t in range(1, CHECKPOINT_FRAMES + 1)])
+    k1 = _k1_launches()
+    print(f"{tag}/tamos_resnet50: fused_self_attention launches {k1} (expected 6 x "
+          f"{CHECKPOINT_FRAMES})", flush=True)
+    check(k1 == 6 * CHECKPOINT_FRAMES, f"{tag}: K1 launched {k1} times on TaMOs")
+    launches["checkpoint_tamos_resnet50"] = k1
+    for out in outs:
+        for oid in ("1", "2"):
+            bb = out["target_bbox"][oid]
+            check(len(bb) == 4 and all(math.isfinite(x) for x in bb), f"{tag}: bad box {bb}")
+    del tracker
+
+    phase_dimp_gate(dimp, tag=f"{tag}/dimp_gate", n_frames=CHECKPOINT_GATE_FRAMES)
+    phase_gate(tamos, tag=f"{tag}/gate")
+    _empty_dir("checkpoint")             # the files take ~700 MB
+    return launches
+
 
 # ---------------------------------------------------------------- training
 
@@ -3008,12 +3176,7 @@ TRAIN_ATOM_GATE_BOUNDS = {"loss": 5e-5, "stats": 5e-5, "grad": 1e-2, "grad_media
 
 def _train_workspace(tag):
     """An empty PYTRACKING_TPU_TORCH_WORKSPACE under .chip_scratch/train/."""
-    import shutil
-
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch", "train",
-                        tag)
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
+    root = _empty_dir("train", tag)
     os.environ["PYTRACKING_TPU_TORCH_WORKSPACE"] = root
     return root
 
@@ -4078,6 +4241,7 @@ def main():
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    _network_path(_empty_dir("networks"))    # no stray network file changes a seeded phase
     at = PhaseClock()
     phase = at("device")
     try:
@@ -4252,6 +4416,9 @@ def main():
         phase_harness_bf16_gate()
         phase = at("harness_pool")
         phase_harness_pool()
+        phase = at("checkpoint")
+        kernel["launches_by_path"].update(phase_checkpoint(dimp, spec))
+        kernel["launches"] += kernel["launches_by_path"]["checkpoint_tamos_resnet50"]
         phase = at("train_dimp50")
         kernel["launches_by_path"]["train_dimp50"] = phase_train_dimp50()
         phase = at("train_gate")

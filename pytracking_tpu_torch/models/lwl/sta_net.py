@@ -79,16 +79,19 @@ class STANet(nn.Module):
 def sta_resnet50(filter_size: int = 3, num_filters: int = 16, optim_iter: int = 5,
                  optim_init_reg: float = 0.01, out_feature_dim: int = 512,
                  label_encoder_dims=(16, 32, 64), box_label_encoder_dims=(16, 32, 64),
-                 decoder_mdim: int = 64, generator: Optional[torch.Generator] = None,
-                 device="cuda") -> STANet:
+                 decoder_mdim: int = 64, clf_feat_blocks: int = 1, clf_final_conv: bool = False,
+                 generator: Optional[torch.Generator] = None, device="cuda") -> STANet:
     """STA on `device`, weights from `generator` (seed 0 when none is given):
-    the ImageNet ResNet-50 to layer4, one BasicBlock 1024 -> 512 with
-    InstanceL2Norm as the target-model feature (the JAX constructor's
-    default layout), two 3x3 target models of 16 channels, two box encoders
+    the ImageNet ResNet-50 to layer4, `clf_feat_blocks` BasicBlocks 1024 ->
+    512 (and a final conv with `clf_final_conv`) with InstanceL2Norm as the
+    target-model feature (by default one block: the JAX constructor's
+    default layout; (0, True) is LWL's, which upstream's sta checkpoint
+    ingest builds), two 3x3 target models of 16 channels, two box encoders
     (no BatchNorm but the label head's), the mask encoder and a decoder over
     32 input channels."""
     device = resolve_device(device)
-    tm_feat = _tm_features(out_feature_dim, filter_size, num_blocks=1, final_conv=False)
+    tm_feat = _tm_features(out_feature_dim, filter_size, num_blocks=clf_feat_blocks,
+                           final_conv=clf_final_conv)
 
     def make_tm(feature_extractor):
         return LWLLinearFilter(filter_size=filter_size, num_filters=num_filters,

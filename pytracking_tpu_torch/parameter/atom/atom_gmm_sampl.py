@@ -17,4 +17,4 @@ def params() -> ATOMParams:
 
 
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    return default.build_spec(params(), device, seed)
+    return default.build_spec(params(), device, seed, network="atom_gmm_sampl")

@@ -2,13 +2,10 @@
 pytracking_tpu/parameter/dimp/dimp18_vot18.py): DiMP-50's VOT2018 settings
 with the ResNet-18 net."""
 
-import torch
-
-from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet18
+from pytracking_tpu_torch.parameter.dimp import dimp18
 from pytracking_tpu_torch.parameter.dimp.dimp50_vot18 import params  # noqa: F401
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 
 
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = dimpnet18(generator=torch.Generator().manual_seed(seed), device=device)
-    return TrackerSpec(params=params(), net=net)
+    return TrackerSpec(params=params(), net=dimp18.build_net(device, seed))

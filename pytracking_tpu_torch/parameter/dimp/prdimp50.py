@@ -1,6 +1,7 @@
 """PrDiMP-50 parameters (counterpart of pytracking_tpu/parameter/dimp/prdimp50.py):
 the KL/Newton net, softmax scores, 352x352 'inside_major' samples and box
-refinement in the relative space."""
+refinement in the relative space. The net is the network file `prdimp50`
+when it exists, else seeded."""
 
 import dataclasses
 
@@ -8,6 +9,7 @@ import torch
 
 from pytracking_tpu_torch.models.tracking.dimpnet import klcedimpnet50
 from pytracking_tpu_torch.parameter.dimp import dimp50
+from pytracking_tpu_torch.parameter.networks import load_or_seeded
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.dimp import DiMPParams
 
@@ -21,5 +23,10 @@ def params() -> DiMPParams:
 
 
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = klcedimpnet50(generator=torch.Generator().manual_seed(seed), device=device)
-    return TrackerSpec(params=params(), net=net)
+    return TrackerSpec(params=params(), net=build_net(device, seed))
+
+
+def build_net(device, seed: int):
+    """PrDiMP-50's net (also for its VOT set)."""
+    return load_or_seeded("prdimp50", lambda: klcedimpnet50(
+        generator=torch.Generator().manual_seed(seed), device=device), device)

@@ -4,9 +4,6 @@ windowing and thresholds."""
 
 import dataclasses
 
-import torch
-
-from pytracking_tpu_torch.models.tracking.dimpnet import klcedimpnet50
 from pytracking_tpu_torch.parameter.dimp import prdimp50
 from pytracking_tpu_torch.parameter.dimp.dimp50_vot18 import VOT18
 from pytracking_tpu_torch.trackers.base import TrackerSpec
@@ -18,5 +15,4 @@ def params() -> DiMPParams:
 
 
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = klcedimpnet50(generator=torch.Generator().manual_seed(seed), device=device)
-    return TrackerSpec(params=params(), net=net)
+    return TrackerSpec(params=params(), net=prdimp50.build_net(device, seed))

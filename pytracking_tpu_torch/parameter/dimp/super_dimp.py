@@ -1,7 +1,8 @@
 """SuperDiMP parameters (counterpart of pytracking_tpu/parameter/dimp/super_dimp.py):
 DiMP-50's net at PrDiMP's operating point: 352x352 'inside_major' samples
 with a scale change of at most 1.5, and 10 box-refinement steps of 2.5e-3 in
-the relative box space."""
+the relative box space. The net is the network file `super_dimp` when it
+exists, else seeded."""
 
 import dataclasses
 
@@ -9,6 +10,7 @@ import torch
 
 from pytracking_tpu_torch.models.tracking.dimpnet import dimpnet50
 from pytracking_tpu_torch.parameter.dimp import dimp50
+from pytracking_tpu_torch.parameter.networks import load_or_seeded
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.dimp import DiMPParams
 
@@ -22,5 +24,6 @@ def params() -> DiMPParams:
 
 
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = dimpnet50(generator=torch.Generator().manual_seed(seed), device=device)
+    net = load_or_seeded("super_dimp", lambda: dimpnet50(
+        generator=torch.Generator().manual_seed(seed), device=device), device)
     return TrackerSpec(params=params(), net=net)

@@ -1,6 +1,7 @@
 """KYS VOT parameters (counterpart of pytracking_tpu/parameter/kys/default_vot.py):
 a 224x224 sample at search area 4, a large memory, a tighter clipped output
-window, and hard-negative mining on the DiMP score."""
+window, and hard-negative mining on the DiMP score. The net is the default
+module's: the network file `kys` when it exists, else seeded."""
 
 import dataclasses
 
@@ -8,6 +9,7 @@ import torch
 
 from pytracking_tpu_torch.models.tracking.kysnet import kysnet_res50
 from pytracking_tpu_torch.parameter.kys import default
+from pytracking_tpu_torch.parameter.networks import load_or_seeded
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.kys import KYSParams
 
@@ -22,5 +24,6 @@ def params() -> KYSParams:
 
 
 def parameters(device="cuda", seed: int = 0) -> TrackerSpec:
-    net = kysnet_res50(generator=torch.Generator().manual_seed(seed), device=device)
+    net = load_or_seeded("kys", lambda: kysnet_res50(
+        generator=torch.Generator().manual_seed(seed), device=device), device)
     return TrackerSpec(params=params(), net=net)

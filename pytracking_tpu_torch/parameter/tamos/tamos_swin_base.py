@@ -1,8 +1,10 @@
 """TaMOs-SwinBase parameters (counterpart of
 pytracking_tpu/parameter/tamos/tamos_swin_base.py).
 
-No TaMOs checkpoint is in the repository, so the weights are drawn from a
-seeded torch.Generator. The Swin backbone computes in float32;
+The net is the network file `tamos_swin_base` when it exists (no upstream
+porter writes one: the port's own files only); else, as no TaMOs
+checkpoint is in the repository, its weights are drawn from a seeded
+torch.Generator. The Swin backbone computes in float32;
 `dtype=torch.bfloat16` runs the transformer in bf16 (float32 softmax,
 LayerNorm and residuals): the counterpart of PYTRACKING_TPU_BF16=1 there.
 """
@@ -11,6 +13,7 @@ import torch
 
 from pytracking_tpu_torch.models.tracking.tamosnet import tamosnet_swin_base
 from pytracking_tpu_torch.parameter import precision
+from pytracking_tpu_torch.parameter.networks import load_or_seeded
 from pytracking_tpu_torch.trackers.base import TrackerSpec
 from pytracking_tpu_torch.trackers.tamos import TaMOsParams
 
@@ -21,7 +24,8 @@ def parameters(device="cuda", dtype: torch.dtype = torch.float32,
                seed: int = 0) -> TrackerSpec:
     params = TaMOsParams()
     dt = None if dtype == torch.float32 else dtype
-    net = tamosnet_swin_base(feature_sz=max(params.train_feature_size),
-                             num_tokens=params.num_tokens, transformer_dtype=dt,
-                             generator=torch.Generator().manual_seed(seed), device=device)
+    net = load_or_seeded("tamos_swin_base", lambda: tamosnet_swin_base(
+        feature_sz=max(params.train_feature_size), num_tokens=params.num_tokens,
+        transformer_dtype=dt, generator=torch.Generator().manual_seed(seed), device=device),
+        device, transformer_dtype=dt)
     return TrackerSpec(params=params, net=net)

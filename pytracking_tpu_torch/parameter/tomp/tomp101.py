@@ -19,4 +19,5 @@ def params() -> ToMPParams:
 
 def parameters(device="cuda", dtype: torch.dtype = torch.float32, seed: int = 0,
                backbone_dtype: Optional[torch.dtype] = None) -> TrackerSpec:
-    return tomp50.build_spec(tompnet101, params(), device, dtype, seed, backbone_dtype)
+    return tomp50.build_spec(tompnet101, params(), device, dtype, seed, backbone_dtype,
+                             "tomp101")

@@ -3,7 +3,7 @@ entry points included), chip_smoke.py and the port's
 own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
 scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py,
-scripts/train_check.py) import no JAX, no
+scripts/train_check.py, scripts/checkpoint_check.py) import no JAX, no
 flax and nothing of the JAX package, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
@@ -22,7 +22,7 @@ PKG = os.path.join(REPO, "pytracking_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytracking_tpu")
 PORT_SCRIPTS = ("dimp_check.py", "k1_check.py", "tomp_check.py", "kys_check.py",
                 "keep_track_check.py", "lwl_check.py", "atom_eco_check.py", "serving_check.py",
-                "train_check.py")
+                "train_check.py", "checkpoint_check.py")
 
 
 def _port_sources():
@@ -309,3 +309,32 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                              text=True, timeout=300)
         assert res.returncode != 0, res.stdout
         assert '"ok": true' not in res.stdout
+
+
+def test_network_loading_raises_without_cuda(tmp_path, monkeypatch):
+    """`load_network` defaults to the card and refuses to run without one,
+    before it reads the file; so does a parameter module that finds its
+    network file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.evaluation import environment
+    from pytracking_tpu_torch.models.tracking.atomnet import atom_resnet18
+    from pytracking_tpu_torch.parameter.atom import default
+    from pytracking_tpu_torch.utils.loading import load_network, save_network
+
+    net = atom_resnet18(device="cpu")
+    path = str(tmp_path / "atom_default.pth")
+    save_network(path, net.state_dict(), "pytracking_tpu_torch.models.tracking.atomnet",
+                 "atom_resnet18", {})
+    assert load_network(path, device="cpu").state_dict().keys() == net.state_dict().keys()
+    with open(path, "wb") as f:
+        f.write(b"unread")                     # the device is refused first
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_network(path)
+    monkeypatch.setenv("PYTRACKING_TPU_TORCH_NETWORK_PATH", str(tmp_path))
+    environment.reset_env_settings()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            default.parameters()
+    finally:
+        environment.reset_env_settings()
