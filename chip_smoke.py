@@ -14,7 +14,7 @@ Phases (any failure exits non-zero and prints no result line):
               version, the PyTorch library call and the card's bound;
   4. main     TaMOs-R50 in bf16 at full width (random weights from a seed):
               `initialize` on a synthetic 480x640 frame with two objects,
-              then `track` over 110 frames; finite outputs, and the kernel
+              then `track` over 45 frames; finite outputs, and the kernel
               launched once per encoder layer per frame;
   5. gate     one TaMOsNet forward on the card (bf16, kernel) against the
               same weights in float32 on the CPU (plain), at the main path's
@@ -39,7 +39,7 @@ Phases (any failure exits non-zero and prints no result line):
               net, 352x352 'inside_major' samples, 10 relative-space
               refinement steps) and PrDiMP-50 (KL/Newton refit, softmax
               scores) over 45 frames (SuperDiMP 60), DiMP-18 and SuperDiMP-simple (the
-              generic Gauss-Newton refit by torch.func) over 30; each at its
+              generic Gauss-Newton refit by torch.func) over 20; each at its
               own not-found threshold (*_NOT_FOUND_THRESHOLD);
  11. *_gate   `dimp_gate` for each of the four over 5 frames;
  12. superdimp_profile  device kernel time by kernel over 2 SuperDiMP frames;
@@ -57,7 +57,7 @@ Phases (any failure exits non-zero and prints no result line):
  16. tomp_profile  device kernel time by kernel over 2 ToMP-50 frames;
  17. tomp101  ToMP-101 as `tomp` over 30 frames (its seeded peaks allow no
               not_found frame after a stored one: see TOMP101_*);
- 18. tamos_swin  TaMOs-SwinBase in bf16 (Swin float32) as `main`: 110
+ 18. tamos_swin  TaMOs-SwinBase in bf16 (Swin float32) as `main`: 45
               frames, two objects, the kernel 6 times per frame on the
               timed key mask; then its bf16 `gate` (tamos_swin_gate) and its
               profile (tamos_swin_profile).
@@ -78,7 +78,7 @@ Phases (any failure exits non-zero and prints no result line):
               the association, a lost frame that rescales the search area
               from the history, K1 not launched; keep_track_gate (also the
               association state equal), keep_track_profile (K1: 0);
-              keep_track_fast (`default_fast`, 352x352, 30 frames, one
+              keep_track_fast (`default_fast`, 352x352, 20 frames, one
               synchronisation per frame).
  21. lwl      LWL-YTVOS in IEEE float32 at full width (maskrcnn ResNet-50 to
               layer4, 480x832 crops, memory 32, refit every frame from frame
@@ -162,7 +162,16 @@ Phases (any failure exits non-zero and prints no result line):
               PYTRACKING_TPU_BF16=1 on SyntheticDataset(5, 20), |dAUC| <= 1.5,
               |d precision-curve AUC| <= 2.0, f32 AUC > 30), harness_pool
               (`run_dataset(threads=2)` of DiMP-18 in spawned workers against
-              threads=0, each worker's peak device memory).
+              threads=0, each worker's peak device memory), harness_benchmarks
+              (the 15 benchmarks' trees written under .chip_scratch/benchmarks/
+              by `evaluation/benchmark_trees.py`, JPEG frames at each
+              benchmark's size, and every registry name through
+              `get_dataset`; `run_tracker` of DiMP-50 on OTB (30 frames, its
+              result file against a direct `track` loop on the decoded
+              frames), TaMOs-R50 bf16 on LaSOT (30 frames, K1 6 per tracked
+              frame), LWL on a two-object DAVIS 2017 sequence (20 frames);
+              `run_vot2020` and `run_vot` of DiMP-50 through the trax
+              stand-in, one report per frame).
  30. checkpoint  trained-network loading: upstream-format `.pth.tar` files of
               DiMP-50 and TaMOs-R50 at full width (nets drawn from
               CHECKPOINT_SEED, a pickled NetConstructor stand-in beside
@@ -170,7 +179,7 @@ Phases (any failure exits non-zero and prints no result line):
               `ingest_checkpoint` into an empty network path, then built by
               `dimp50` (f32) and `tamos_resnet50` (bf16) on the card: each
               net equal to its source bit for bit and unlike the fallback
-              seed's; 20 tracked frames each with one host synchronisation
+              seed's; 12 tracked frames each with one host synchronisation
               per frame, K1 6 per TaMOs frame and 0 on DiMP, each counted in
               its own run; `dimp_gate` (3 frames) and TaMOs's bf16 `gate` on
               the loaded specs at their bounds; file sizes, ingest and load
@@ -284,10 +293,12 @@ PEAK_SFU_EXP = 132 * 16 * 1.83e9
 K1_KERNEL = "mha_fwd"                # both of K1's kernels' names start so
 TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
                                     # of 24x36 tokens), heads, head dim
-N_FRAMES = 110                      # 105 timed after warm-up: p90 has 10 frames beyond it
+N_FRAMES = 45                       # TaMOs-R50 and -SwinBase: 40 timed after warm-up
+KYS_FRAMES = 110                    # its checks' events come late
 DIMP_FRAMES = 45                     # DiMP-50, PrDiMP-50, ToMP-50: refits at 20 and 40
 SUPERDIMP_FRAMES = 60                # its seeded net's normal frames come after frame 45
-SHORT_FRAMES = 30                    # DiMP-18, SuperDiMP-simple, ToMP-101, KeepTrack-fast
+SHORT_FRAMES = 20                    # DiMP-18, SuperDiMP-simple, KeepTrack-fast
+TOMP101_FRAMES = 30
 WARMUP_FRAMES = 5
 PROFILE_FRAMES = 2                   # tracked frames under each tracker's profiler
 DIMP_GATE_FRAMES = 10
@@ -417,7 +428,7 @@ RTS_TOO_SMALL_THRESHOLD = 0.0222
 TOMP = {"tomp50": ("ToMP-50", TOMP_NOT_FOUND_THRESHOLD, TOMP_CONF_THS,
                    TOMP_DISTRACTOR_THRESHOLD, DIMP_FRAMES, True),
         "tomp101": ("ToMP-101", TOMP101_NOT_FOUND_THRESHOLD, TOMP101_CONF_THS,
-                    TOMP101_DISTRACTOR_THRESHOLD, SHORT_FRAMES, False)}
+                    TOMP101_DISTRACTOR_THRESHOLD, TOMP101_FRAMES, False)}
 # parameter module: (label, package, not-found threshold, frames, gate px)
 DIMP_FAMILY = {
     "dimp50": ("DiMP-50", "dimp", DIMP_NOT_FOUND_THRESHOLD, DIMP_FRAMES, DIMP_GATE_PX),
@@ -1269,7 +1280,7 @@ def phase_kys(tag="kys"):
           f"{p.sample_memory_size}, fused not-found threshold "
           f"{p.target_not_found_threshold_fused}, DiMP threshold {p.dimp_threshold}", flush=True)
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    frames = [dimp_frame(bg, t) for t in range(N_FRAMES + 11)]
+    frames = [dimp_frame(bg, t) for t in range(KYS_FRAMES + 11)]
     _k1_zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1277,7 +1288,7 @@ def phase_kys(tag="kys"):
     torch.cuda.synchronize()
     init_ms = (time.perf_counter() - t0) * 1e3
     frame_ms, outs, before, after = [], [], [], []
-    for im in frames[1:N_FRAMES + 1]:
+    for im in frames[1:KYS_FRAMES + 1]:
         st = tracker.state                  # device tensors, read after the run
         before.append((st.have_state, st.prev_box_patch, st.state_vector, st.motion_feat_prev,
                        st.prev_label))
@@ -1310,7 +1321,7 @@ def phase_kys(tag="kys"):
           f"{tag}: not both alignments ran: {dict(collections.Counter(branches))}")
     check(len(kept) > 0 and all(kept), f"{tag}: no not_found frame, or one that changed the "
           f"propagation state")
-    _check_one_sync(tag, tracker, frames[N_FRAMES + 1:])
+    _check_one_sync(tag, tracker, frames[KYS_FRAMES + 1:])
     return spec, tracker, _k1_path(tag)
 
 
@@ -2649,12 +2660,14 @@ def _frame_ms(times, first=1):
                        if i >= first and i not in HARNESS_SYNC_FRAMES])
 
 
-def _direct_track_times(tracker, dataset):
-    """The harness's control: each sequence's frames rendered first, then a
-    tracker of the same class and spec from `tracker.create_tracker`,
-    `initialize` and `track` called directly with the info `run_sequence`
-    gives. Seconds per frame by sequence as in a timing file (row 0 is 0:
-    `_frame_ms` leaves it out), the sync-counted frames timed alike."""
+def _direct_track_times(tracker, dataset, outs=None):
+    """The harness's control: each sequence's frames rendered (or decoded)
+    first, then a tracker of the same class and spec from
+    `tracker.create_tracker`, `initialize` and `track` called directly with
+    the info `run_sequence` gives. Seconds per frame by sequence as in a
+    timing file (row 0 is 0: `_frame_ms` leaves it out), the sync-counted
+    frames timed alike; `outs` (a dict) gets each sequence's `track`
+    outputs."""
     from pytracking_tpu_torch.evaluation.running import _read_image
 
     times = {}
@@ -2662,14 +2675,17 @@ def _direct_track_times(tracker, dataset):
         frames = [_read_image(f) for f in seq.frames]
         t = tracker.create_tracker(multiobj=seq.multiobj_mode)
         prev = t.initialize(frames[0], seq.init_info()) or {}
-        rows = [0.0]
+        rows, seq_outs = [0.0], []
         for i, im in enumerate(frames[1:], start=1):
             t0 = time.perf_counter()
             info = seq.frame_info(i)
             info["previous_output"] = prev
             prev = t.track(im, info)
             rows.append(time.perf_counter() - t0)
+            seq_outs.append(prev)
         times[seq.name] = np.asarray(rows)
+        if outs is not None:
+            outs[seq.name] = seq_outs
     return times
 
 
@@ -2771,7 +2787,7 @@ def phase_harness_tamos(main_median, tag="harness_tamos"):
     (PYTRACKING_TPU_BF16=1), the natively multi-object route: K1 launched 6
     times per tracked frame, counted in this run. ms/frame against `track`
     called directly on the same frames (the harness's own cost) and against
-    the `main` phase's median (480x640 frames, two objects, 110 frames)."""
+    the `main` phase's median (480x640 frames, two objects, 45 frames)."""
     from pytracking_tpu_torch.evaluation.datasets import get_dataset
     from pytracking_tpu_torch.run_tracker import run_tracker
     from pytracking_tpu_torch.trackers.tamos import TaMOsTracker
@@ -2977,10 +2993,265 @@ def phase_harness_pool(tag="harness_pool"):
     check(len(reports) == len(ds), f"{tag}: {len(reports)} jobs reported")
     check(worst <= HARNESS_POOL_PX, f"{tag}: pooled boxes {worst} px from threads=0")
 
+# ---------------------------------------------------------------- benchmark trees
+
+# frames of the sequence each run tracks (HARNESS_SYNC_FRAMES needs 10 tracked frames)
+BENCHMARK_TRACKED = {"otb": 30, "lasot": 30, "davis": 20, "vot": 12}
+# the harness's boxes against a direct loop's: 0.0 px read on the card and on the CPU
+# (one tracker class and spec, seeded draws, the same decoded frames); ten times a zero
+# reading leaves no room for a last-bit difference, so the bound is 1e-3 px
+BENCHMARK_OTB_GATE_PX = 1e-3
+
+
+@contextlib.contextmanager
+def _benchmark_env(paths):
+    """While open, both packages' dataset variables name the written trees."""
+    from pytracking_tpu_torch.evaluation import benchmark_trees, environment
+
+    env = benchmark_trees.environment_variables(paths)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    environment.reset_env_settings()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        environment.reset_env_settings()
+
+
+@contextlib.contextmanager
+def _param_cut(module, **changes):
+    """While open, the parameter module `module` (e.g. "dimp.dimp50") builds
+    its spec with `changes` to its params: the entry points (run_tracker,
+    run_vot) then run at the card phases' cuts."""
+    mod = importlib.import_module(f"pytracking_tpu_torch.parameter.{module}")
+    original = mod.parameters
+
+    def parameters(*args, **kwargs):
+        spec = original(*args, **kwargs)
+        return dataclasses.replace(spec, params=dataclasses.replace(spec.params, **changes))
+
+    mod.parameters = parameters
+    try:
+        yield
+    finally:
+        mod.parameters = original
+
+
+def _first_vot_mask(box, W, H):
+    """The first region as the toolkit sends a VOT2020 mask: the box
+    rasterised and stored only as far as its extent (the client pads it)."""
+    x, y, w, h = box
+    m = np.zeros((H, W), np.uint8)
+    m[int(max(y, 0)):int(min(y + h, H)), int(max(x, 0)):int(min(x + w, W))] = 1
+    ys, xs = np.nonzero(m)
+    return m[:ys.max() + 1, :xs.max() + 1]
+
+
+def _vot_session(tag, entry, frames, region, gt):
+    """One TraX session of DiMP-50 through `entry` (run_vot2020 / run_vot)
+    served by the trax stand-in: the echo of the first region and one report
+    per frame after it, finite, one host synchronisation per tracked frame,
+    K1 not launched; returns K1's count."""
+    from pytracking_tpu_torch.analysis.extract_results import calc_iou_overlap
+    from pytracking_tpu_torch.evaluation import trax_replay
+
+    with _param_cut("dimp.dimp50", target_not_found_threshold=DIMP_NOT_FOUND_THRESHOLD), \
+            _harness_probe() as rec, trax_replay.replay(frames, region) as session:
+        _k1_zero()
+        t0 = time.perf_counter()
+        entry("dimp", "dimp50", device=HARNESS_DEVICE)
+        wall = time.perf_counter() - t0
+        k1 = _k1_launches()
+    reports = session.reports
+    boxes = np.asarray([r.region for r in reports[1:]], np.float64)
+    check(len(reports) == len(frames) and session.served == len(frames),
+          f"{tag}: {len(reports)} reports for {len(frames)} frames ({session.served} served)")
+    check(reports[0].kind == region.kind and all(r.kind == "rectangle" for r in reports[1:]),
+          f"{tag}: report kinds {[r.kind for r in reports]}")
+    check(boxes.shape == (len(frames) - 1, 4) and np.isfinite(boxes).all(),
+          f"{tag}: reported boxes {boxes.shape}")
+    _check_harness_syncs(tag, rec)
+    check(k1 == 0, f"{tag}: K1 launched {k1} times on the DiMP path")
+    iou = calc_iou_overlap(boxes, np.asarray(gt[1:], np.float64))
+    print(f"{tag}: {len(reports)} reports ({reports[0].kind} echo + {len(reports) - 1} "
+          f"rectangles, properties {sorted(reports[-1].properties)}) in {wall:.2f} s; mean IoU "
+          f"against the tree's boxes {iou.mean():.3f} (seeded weights: not accuracy); K1 {k1}",
+          flush=True)
+    return k1
+
+
+def phase_harness_benchmarks(tag="harness_benchmarks"):
+    """The 15 benchmarks' adapters, the VOT entry and the harness on frames
+    read from disk. `benchmark_trees` writes each benchmark's tree under
+    .chip_scratch/benchmarks/ (synthetic frames as JPEG at the benchmarks'
+    own sizes, indexed-PNG masks) and every registry name loads through
+    `get_dataset`. Then, at full width and each with one host
+    synchronisation per tracked frame: `run_tracker("dimp", "dimp50",
+    "otb")` on Basketball (30 frames, 640x480) at the `dimp` cut, its result
+    file against the boxes of `initialize` / `track` called directly on the
+    decoded frames (BENCHMARK_OTB_GATE_PX); `run_tracker("tamos",
+    "tamos_resnet50", "lasot")` in bf16 on lion-3 (30 frames, 1280x720), K1
+    6 times per tracked frame; `run_tracker("lwl", "lwl_ytvos",
+    "dv2017_val")` on the two-object bike-packing (20 frames, 854x480,
+    LWLMultiObjectTracker), a PNG per frame, J and F, K1 0; `run_vot2020`
+    and `run_vot` of DiMP-50 over the VOT tree's ants1 (12 frames, a mask
+    and a polygon first region) through the trax stand-in, one report per
+    frame, K1 0. Returns K1's count by path."""
+    import shutil
+
+    from pytracking_tpu_torch.analysis.evaluate_vos import evaluate_vos
+    from pytracking_tpu_torch.analysis.extract_results import calc_iou_overlap
+    from pytracking_tpu_torch.evaluation import benchmark_trees, trax_replay
+    from pytracking_tpu_torch.evaluation.datasets import dataset_dict, get_dataset
+    from pytracking_tpu_torch.evaluation.running import _read_image
+    from pytracking_tpu_torch.run_tracker import run_tracker
+    from pytracking_tpu_torch.run_vot import run_vot, run_vot2020
+    from pytracking_tpu_torch.utils.png_io import imread_indexed
+
+    root = _empty_dir("benchmarks")
+    t0 = time.perf_counter()
+    paths = benchmark_trees.write_benchmark_trees(root, tracked=BENCHMARK_TRACKED)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    print(f"{tag}: wrote the 15 benchmark trees, {len(files)} files, "
+          f"{sum(os.path.getsize(f) for f in files) / 2**20:.1f} MiB, in "
+          f"{time.perf_counter() - t0:.2f} s under {root}", flush=True)
+    k1 = {}
+    with _benchmark_env(paths):
+        t0 = time.perf_counter()
+        counts = {}
+        for name in dataset_dict:
+            if name.startswith("synthetic"):
+                continue
+            ds = get_dataset(name)
+            check(len(ds) > 0 and all(len(s.frames) > 0 for s in ds),
+                  f"{tag}: {name} loaded {len(ds)} sequences")
+            counts[name] = len(ds)
+        print(f"{tag}: every registry name through get_dataset in "
+              f"{time.perf_counter() - t0:.2f} s, sequences: {counts}", flush=True)
+        for name, bench in (("otb", "otb"), ("lasot", "lasot"), ("dv2017_val", "davis"),
+                            ("yt2019_valid_all", "youtubevos"), ("vot", "vot")):
+            shape = _read_image(get_dataset(name)[0].frames[0]).shape
+            check(shape == benchmark_trees.FRAME_SIZES[bench][::-1] + (3,),
+                  f"{tag}: {name}'s frames decode to {shape}")
+
+        # DiMP-50 on OTB through run_tracker, against a direct loop
+        sub = f"{tag}/otb_dimp50"
+        _harness_root(sub)
+        seq = get_dataset("otb")["Basketball"]
+        with _param_cut("dimp.dimp50", target_not_found_threshold=DIMP_NOT_FOUND_THRESHOLD), \
+                _harness_probe() as rec:
+            _k1_zero()
+            tracker = run_tracker("dimp", "dimp50", dataset_name="otb", sequence="Basketball",
+                                  device=HARNESS_DEVICE)
+            k1["harness_otb_dimp"] = _k1_launches()
+        times = _check_result_files(sub, tracker, [seq])
+        _check_harness_syncs(sub, rec)
+        direct_outs = {}
+        direct = _direct_track_times(tracker, [seq], direct_outs)
+        init = [seq.init_info()["init_bbox"]]
+        run_boxes = np.asarray(init + [o["target_bbox"] for o in rec["outs"][0]], np.float64)
+        direct_boxes = np.asarray(init + [o["target_bbox"] for o in direct_outs[seq.name]],
+                                  np.float64)
+        written = np.loadtxt(os.path.join(tracker.results_dir, "Basketball.txt"), delimiter="\t",
+                             ndmin=2)
+        check(np.array_equal(written, run_boxes.astype(int)),
+              f"{sub}: the result file is not the run's boxes truncated")
+        gate = float(np.abs(run_boxes - direct_boxes).max())
+        flags = collections.Counter(o["flag"] for o in rec["outs"][0])
+        print(f"{sub}: {len(seq.frames)} frames of {seq.frames[0]}: boxes of the harness run "
+              f"against initialize/track called directly on the decoded frames: max |diff| "
+              f"{gate:.3e} px (<= {BENCHMARK_OTB_GATE_PX}); file = the run's boxes truncated; "
+              f"flags {dict(flags)}; mean IoU against the tree's boxes "
+              f"{calc_iou_overlap(run_boxes, seq.ground_truth_rect).mean():.3f} (seeded "
+              f"weights: not accuracy); K1 {k1['harness_otb_dimp']}", flush=True)
+        _harness_against_direct(sub, times, direct)
+        check(gate <= BENCHMARK_OTB_GATE_PX, f"{sub}: harness vs direct boxes {gate} px")
+        check(k1["harness_otb_dimp"] == 0, f"{sub}: K1 launched on the DiMP path")
+        del tracker
+
+        # TaMOs-R50 bf16 on LaSOT through run_tracker
+        sub = f"{tag}/lasot_tamos"
+        _harness_root(sub)
+        seq = get_dataset("lasot")["lion-3"]
+        os.environ["PYTRACKING_TPU_BF16"] = "1"
+        try:
+            with _harness_probe() as rec:
+                _k1_zero()
+                tracker = run_tracker("tamos", "tamos_resnet50", dataset_name="lasot",
+                                      sequence="lion-3", device=HARNESS_DEVICE)
+                k1["harness_lasot_tamos"] = _k1_launches()
+        finally:
+            del os.environ["PYTRACKING_TPU_BF16"]
+        times = _check_result_files(sub, tracker, [seq])
+        _check_harness_syncs(sub, rec)
+        tracked = len(seq.frames) - 1
+        ms = _frame_ms(times)
+        print(f"{sub}: TaMOs-R50 bf16 on {len(seq.frames)} frames of {seq.frames[0]}: track "
+              f"median {np.median(ms):.3f} ms/frame ({len(ms)} timing rows); "
+              f"fused_self_attention launches {k1['harness_lasot_tamos']} (expected 6 x "
+              f"{tracked} tracked frames)", flush=True)
+        check(k1["harness_lasot_tamos"] == 6 * tracked,
+              f"{sub}: K1 launched {k1['harness_lasot_tamos']} times, expected {6 * tracked}")
+        del tracker
+
+        # LWL on a two-object DAVIS 2017 sequence, both objects in one step
+        sub = f"{tag}/davis_lwl"
+        _harness_root(sub)
+        seq = get_dataset("dv2017_val")["bike-packing"]
+        check(seq.object_ids == ["1", "2"], f"{sub}: objects {seq.object_ids}")
+        os.environ["PYTRACKING_TPU_VMAP_MULTIOBJ"] = "1"
+        try:
+            with _harness_probe() as rec:
+                _k1_zero()
+                tracker = run_tracker("lwl", "lwl_ytvos", dataset_name="dv2017_val",
+                                      sequence="bike-packing", device=HARNESS_DEVICE)
+                k1["harness_davis_lwl"] = _k1_launches()
+        finally:
+            del os.environ["PYTRACKING_TPU_VMAP_MULTIOBJ"]
+        check(set(rec["built"]) == {"LWLMultiObjectTracker"}, f"{sub}: built {rec['built']}")
+        times = _check_result_files(sub, tracker, [seq], per_object=True)
+        _check_harness_syncs(sub, rec)
+        d = os.path.join(tracker.segmentation_dir, seq.name)
+        names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        check(names == [f"{i:05d}.png" for i in range(len(seq.frames))],
+              f"{sub}: PNGs {names}")
+        labels = set(np.unique(np.concatenate([imread_indexed(os.path.join(d, n)).ravel()
+                                               for n in names])).tolist())
+        check(labels <= {0, 1, 2}, f"{sub}: labels {labels}")
+        jf = evaluate_vos([tracker], [seq], quiet=True)["lwl_lwl_ytvos"]
+        ms = _frame_ms(times)
+        print(f"{sub}: {len(seq.frames)} frames of {seq.frames[0]}, 2 objects: a PNG per "
+              f"frame, labels {sorted(labels)}; J&F {jf['J&F-Mean']:.4f}, J {jf['J-Mean']:.4f}, "
+              f"F {jf['F-Mean']:.4f} (seeded weights: not accuracy); track median "
+              f"{np.median(ms):.3f} ms/frame; K1 {k1['harness_davis_lwl']}", flush=True)
+        check(k1["harness_davis_lwl"] == 0, f"{sub}: K1 launched on the LWL path")
+        del tracker
+
+        # DiMP-50 through the VOT toolkit's two protocols
+        seq = get_dataset("vot")["ants1"]
+        polygons = np.loadtxt(os.path.join(paths["vot_path"], "ants1", "groundtruth.txt"),
+                              delimiter=",", ndmin=2)
+        W, H = benchmark_trees.FRAME_SIZES["vot"]
+        _harness_root(f"{tag}/vot")
+        k1["harness_vot2020_dimp"] = _vot_session(
+            f"{tag}/vot2020", run_vot2020, seq.frames,
+            trax_replay.mask(_first_vot_mask(seq.ground_truth_rect[0], W, H)),
+            seq.ground_truth_rect)
+        k1["harness_vot_dimp"] = _vot_session(
+            f"{tag}/vot", run_vot, seq.frames, trax_replay.polygon(polygons[0]),
+            seq.ground_truth_rect)
+    shutil.rmtree(root)
+    return k1
+
 # ---------------------------------------------------------------- trained networks
 
 CHECKPOINT_SEED = 7                  # the source nets; the parameter modules' fallback draws 0
-CHECKPOINT_FRAMES = 20
+CHECKPOINT_FRAMES = 12
 CHECKPOINT_GATE_FRAMES = 3
 
 
@@ -4416,6 +4687,8 @@ def main():
         phase_harness_bf16_gate()
         phase = at("harness_pool")
         phase_harness_pool()
+        phase = at("harness_benchmarks")
+        kernel["launches_by_path"].update(phase_harness_benchmarks())
         phase = at("checkpoint")
         kernel["launches_by_path"].update(phase_checkpoint(dimp, spec))
         kernel["launches"] += kernel["launches_by_path"]["checkpoint_tamos_resnet50"]

@@ -1,14 +1,13 @@
 """Dataset registry: name -> (adapter module, class, keyword arguments)
 (counterpart of pytracking_tpu/evaluation/datasets.py, with the same
-table). Adapters are imported when a dataset is loaded. The port has the
-`synthetic` adapter; loading a dataset whose adapter is not ported yet
-raises a ValueError that names the adapter (ROADMAP queue 1 item 3 ports
-the rest)."""
+table). Adapters are imported when a dataset is loaded. The synthetic
+datasets need nothing on disk; every other one reads its benchmark's tree
+from the path its adapter names (evaluation/environment.py), and raises
+where that path is not set."""
 
 from __future__ import annotations
 
 import importlib
-import importlib.util
 from collections import namedtuple
 
 from pytracking_tpu_torch.evaluation.data import SequenceList
@@ -114,11 +113,6 @@ def _dataset_class(name: str):
     if name not in dataset_dict:
         raise ValueError(f"Unknown dataset '{name}'")
     info = dataset_dict[name]
-    if importlib.util.find_spec(info.module) is None:
-        raise ValueError(
-            f"dataset '{name}' needs the adapter {info.module}, which the port does not "
-            "have yet (ROADMAP.md, queue 1 item 3 ports the remaining adapters); the "
-            "synthetic datasets need nothing on disk")
     return getattr(importlib.import_module(info.module), info.class_name), info.kwargs
 
 

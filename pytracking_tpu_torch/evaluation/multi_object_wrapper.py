@@ -15,6 +15,17 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 
+def mask_extent_box(mask) -> list:
+    """[x, y, w, h] of a mask's nonzero extent, [0, 0, 1, 1] for an empty
+    mask: the box a VOS tracker starts an object from when a benchmark
+    (DAVIS, YouTube-VOS) gives its mask alone."""
+    ys, xs = np.nonzero(np.asarray(mask))
+    if not len(ys):
+        return [0.0, 0.0, 1.0, 1.0]
+    return [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
+            float(ys.max() - ys.min() + 1)]
+
+
 class MultiObjectWrapper:
     multiobj_mode = "parallel"
 
@@ -35,7 +46,8 @@ class MultiObjectWrapper:
 
     def _split_info(self, info: dict) -> Dict[Any, dict]:
         """Each object's init info: its box, and its mask (a label map is
-        cut to the object's label)."""
+        cut to the object's label); an object given by its mask alone gets
+        the mask's extent as its box."""
         info_split = {}
         for obj_id in info.get("object_ids", []):
             d = {"object_ids": [obj_id]}
@@ -50,6 +62,8 @@ class MultiObjectWrapper:
                     d[k] = (np.asarray(v) == int(obj_id)).astype(np.uint8)
                 else:
                     d[k] = v
+            if "init_bbox" not in d and "init_mask" in d:
+                d["init_bbox"] = mask_extent_box(d["init_mask"])
             info_split[obj_id] = d
         return info_split
 

@@ -22,6 +22,7 @@ from typing import List, Optional
 import numpy as np
 
 from pytracking_tpu_torch.evaluation.data import Sequence
+from pytracking_tpu_torch.evaluation.multi_object_wrapper import mask_extent_box
 
 
 def _read_image(path: str) -> np.ndarray:
@@ -182,6 +183,13 @@ def run_sequence(seq: Sequence, tracker, debug: int = 0,
         prev_output = t.initialize(image, info) or {}
         init_time = time.perf_counter() - start
         init_bbox = info.get("init_bbox")
+        if init_bbox is None and info.get("init_mask") is not None:
+            # objects given by their masks alone (DAVIS, YouTube-VOS): the
+            # first row is each mask's extent, the box the trackers start from
+            mask = np.asarray(info["init_mask"])
+            init_bbox = mask_extent_box(mask) if seq.object_ids is None else {
+                oid: mask_extent_box(mask == int(oid))
+                for oid in info.get("object_ids", seq.object_ids)}
         if seq.object_ids is not None and not isinstance(init_bbox, dict):
             # multi-object outputs are dicts by object: so is frame 0
             init_bbox = {oid: init_bbox for oid in info.get("object_ids", seq.object_ids)}

@@ -1,7 +1,7 @@
 """Example experiments (counterpart of
 pytracking_tpu/experiments/myexperiments.py). Each takes the device its
-trackers run on. The NFS and UAV datasets need adapters that the port does
-not have yet: loading them raises the registry's error."""
+trackers run on. The NFS and UAV datasets are read from the trees that
+PYTRACKING_TPU_NFS_PATH and PYTRACKING_TPU_UAV_PATH name."""
 
 from pytracking_tpu_torch.evaluation.datasets import get_dataset
 from pytracking_tpu_torch.evaluation.tracker import Tracker

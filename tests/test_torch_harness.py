@@ -84,8 +84,15 @@ def test_synthetic_datasets_match_jax(name, roots):
         assert t_running._read_image(uri).tobytes() == j_running._read_image(uri).tobytes()
 
 
-def test_registry_matches_jax_and_names_missing_adapters(roots):
+def test_registry_matches_jax_and_names_missing_adapters(roots, monkeypatch):
+    """The registry's table is the JAX package's, and no adapter is
+    missing: every name's module exists in the port with its class. The
+    example experiments over NFS and UAV123 load from written trees."""
+    import importlib
+    import importlib.util
+
     from pytracking_tpu.evaluation.datasets import dataset_dict as j_dict
+    from pytracking_tpu_torch.evaluation import benchmark_trees
     from pytracking_tpu_torch.evaluation import datasets as t_datasets
 
     t_dict = t_datasets.dataset_dict
@@ -95,18 +102,24 @@ def test_registry_matches_jax_and_names_missing_adapters(roots):
         assert info.module.startswith("pytracking_tpu_torch.evaluation.adapters.")
         assert info.module.rsplit(".", 1)[1] == ref.module.rsplit(".", 1)[1]
         assert (info.class_name, info.kwargs) == (ref.class_name, ref.kwargs)
-    for name in ("otb", "lasot", "dv2017_val", "oxuva_dev", "nfs"):
-        adapter = t_dict[name].module
-        with pytest.raises(ValueError, match="queue 1 item 3") as e:
-            t_datasets.get_dataset(name)
-        assert adapter in str(e.value)
-        with pytest.raises(ValueError, match=adapter):
-            t_datasets.get_dataset_attributes(name)
+        assert importlib.util.find_spec(info.module) is not None, name
+        assert isinstance(getattr(importlib.import_module(info.module), info.class_name), type)
+    missing = [n for n, i in t_dict.items() if importlib.util.find_spec(i.module) is None]
+    assert missing == []
     with pytest.raises(ValueError, match="Unknown dataset"):
         t_datasets.get_dataset("no_such_dataset")
+    paths = benchmark_trees.write_benchmark_trees(str(roots / "benchmarks"), size=(32, 24))
+    for var, value in benchmark_trees.environment_variables(paths).items():
+        monkeypatch.setenv(var, value)
+    t_env.reset_env_settings()
     from pytracking_tpu_torch.experiments import myexperiments
-    with pytest.raises(ValueError, match="adapters.nfs"):
-        myexperiments.atom_nfs_uav(device="cpu")
+    trackers, dataset = myexperiments.atom_nfs_uav(device="cpu")
+    assert [t.run_id for t in trackers] == [0, 1, 2]
+    assert [s.name for s in dataset] == [s.name for s in t_datasets.get_dataset("nfs")] + [
+        s.name for s in t_datasets.get_dataset("uav")]
+    assert [s.name for s in myexperiments.uav_test(device="cpu")[1]][:2] == ["uav_bike1",
+                                                                           "uav_bird1_1"]
+    t_env.reset_env_settings()
 
 
 # ---------------------------------------------------------------- environment

@@ -4,7 +4,9 @@ own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
 scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py,
 scripts/train_check.py, scripts/checkpoint_check.py) import no JAX, no
-flax and nothing of the JAX package, and the port's entry points
+flax and nothing of the JAX package (the dataset adapters, the VOT entry
+and the result packers among them), the VOT toolkit's manifests in
+pytracking_tpu_torch/VOT/ name only the port, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
 
@@ -58,6 +60,17 @@ def test_no_jax_imports_in_port_sources(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(os.path.join(PKG, "VOT"))))
+def test_vot_manifests_name_only_the_port(name):
+    """The toolkit's manifests start the port's entry, never the JAX
+    package's."""
+    import re
+
+    text = open(os.path.join(PKG, "VOT", name)).read()
+    assert re.findall(r"pytracking_tpu(?!_torch)\b", text) == [], name
+    assert "pytracking_tpu_torch" in text and "run_vot" in text
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -257,6 +270,26 @@ def test_harness_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         run_experiment.main(["myexperiments", "dimp_synthetic"])
     assert not os.listdir(tmp_path)
     environment.reset_env_settings()
+
+
+def test_vot_entry_points_raise_without_cuda():
+    """`run_vot2020` / `run_vot` (also from the command line) refuse to run
+    without a card before the TraX handshake: the toolkit's session serves
+    no frame."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch import run_vot
+    from pytracking_tpu_torch.evaluation import trax_replay
+
+    calls = ((run_vot.run_vot2020, ("dimp", "dimp50")), (run_vot.run_vot, ("dimp", "dimp50")),
+             (run_vot.main, (["dimp", "dimp50"],)),
+             (run_vot.main, (["dimp", "dimp50", "--protocol", "vot"],)))
+    for fn, args in calls:
+        with trax_replay.replay(["frame.jpg"], trax_replay.polygon([0, 0, 4, 0, 4, 4, 0, 4])) \
+                as session:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(*args)
+        assert session.served == 0
 
 
 TRAIN_RECIPES = (("dimp", "dimp50"), ("dimp", "dimp18"), ("dimp", "prdimp50"),

@@ -30,6 +30,7 @@ moves them; DiMP never reads them (the test checks both sides of that).
 
 import copy
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +53,20 @@ from pytracking_tpu_torch.utils.convert_weights import dimpnet_from_flax
 
 from test_torch_dimp import _perturb_batch_stats, jax_tiny_dimpnet, torch_tiny_dimpnet
 from test_torch_lwl_ops import one_thread  # noqa: F401 (autouse: one CPU thread)
+
+
+@pytest.fixture(autouse=True)
+def real_tensorboardx(monkeypatch):
+    """The trainer's scalar writer is tensorboardX's where it imports.
+    tests/refshim.py installs an empty `tensorboardX` (SummaryWriter =
+    object) in the worker that runs a file importing it; a training test
+    scheduled after such a file in the same worker would hand that stub to
+    the trainer. Drop the stub, so that the import finds the installed
+    package or fails as it would without one."""
+    tb = sys.modules.get("tensorboardX")
+    if tb is not None and getattr(tb, "__file__", None) is None:
+        monkeypatch.delitem(sys.modules, "tensorboardX")
+
 
 GRAD_TOL = 1e-3
 SZ = 64                        # crops: 4x4 layer3 features, 5x5 score maps

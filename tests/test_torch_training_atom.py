@@ -35,6 +35,7 @@ from pytracking_tpu_torch.utils.convert_weights import atomnet_from_flax
 from test_torch_dimp import _perturb_batch_stats
 from test_torch_lwl_ops import one_thread  # noqa: F401 (autouse: one CPU thread)
 from test_torch_training import GRAD_TOL, _close, _np, to_torch
+from test_torch_training import real_tensorboardx  # noqa: F401 (autouse)
 
 SZ = 64
 # The batch: 8 sequences, one whose gradient is continuous at rounding

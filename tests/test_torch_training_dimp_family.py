@@ -40,6 +40,7 @@ from test_torch_dimp_family_ops import (NEWTON_KW, _filt, _filter_problem, _nchw
                                         jax_tiny_net, perturb_batch_stats, torch_tiny_net)
 from test_torch_lwl_ops import one_thread  # noqa: F401 (autouse: one CPU thread)
 from test_torch_training import GRAD_TOL, _close, _np, to_torch
+from test_torch_training import real_tensorboardx  # noqa: F401 (autouse)
 
 SZ = 64                        # crops: 4x4 layer3 features, 5x5 score maps
 # The net-level batch per tiny net. The tiny nets' gradients jump where

@@ -48,6 +48,7 @@ from pytracking_tpu_torch.utils.convert_weights import tcmnet_from_flax
 
 from test_torch_lwl_ops import one_thread  # noqa: F401
 from test_torch_training import GRAD_TOL, _close, _np
+from test_torch_training import real_tensorboardx  # noqa: F401 (autouse)
 
 SZ = 64
 S, K = 3, 5

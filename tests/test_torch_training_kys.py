@@ -57,6 +57,7 @@ from pytracking_tpu_torch.utils.convert_weights import kysnet_from_flax
 
 from test_torch_lwl_ops import one_thread  # noqa: F401
 from test_torch_training import GRAD_TOL, _close, _np, to_torch
+from test_torch_training import real_tensorboardx  # noqa: F401 (autouse)
 
 SZ = 64                    # crops: a 4x4 grid at stride 16
 D = 32                     # classification feature channels

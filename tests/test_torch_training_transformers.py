@@ -60,6 +60,7 @@ from pytracking_tpu_torch.utils.convert_weights import tamosnet_from_flax, tompn
 from test_torch_dimp import _perturb_batch_stats
 from test_torch_lwl_ops import one_thread  # noqa: F401 (autouse: one CPU thread)
 from test_torch_training import GRAD_TOL, _close, _np, to_torch
+from test_torch_training import real_tensorboardx  # noqa: F401 (autouse)
 
 SZ = 64                    # crops: a 4x4 grid at stride 16, 8x8 at stride 8
 F_LO, F_HI = SZ // 16, SZ // 8

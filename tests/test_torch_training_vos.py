@@ -63,6 +63,7 @@ from test_torch_lwl_ops import (D, HINGE_KW, K, LAYERS, TINY_FT, _finish, _jax_b
                                 _torch_backbone, _torch_lwl_parts, one_thread,  # noqa: F401
                                 tiny_boxnet_pair, tiny_lwl_pair)
 from test_torch_training import GRAD_TOL, _close, _np, to_torch
+from test_torch_training import real_tensorboardx  # noqa: F401 (autouse)
 
 SZ = 64                    # crops: a 4x4 grid at stride 16
 LABEL_SIGMA = 0.05         # Settings: output_sigma_factor / search_area_factor
