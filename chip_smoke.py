@@ -3004,11 +3004,12 @@ BENCHMARK_OTB_GATE_PX = 1e-3
 
 
 @contextlib.contextmanager
-def _benchmark_env(paths):
-    """While open, both packages' dataset variables name the written trees."""
+def _benchmark_env(paths, trees=None):
+    """While open, both packages' dataset variables name the written trees
+    (`trees`: the module that wrote them, benchmark_trees by default)."""
     from pytracking_tpu_torch.evaluation import benchmark_trees, environment
 
-    env = benchmark_trees.environment_variables(paths)
+    env = (trees or benchmark_trees).environment_variables(paths)
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     environment.reset_env_settings()
@@ -3401,9 +3402,9 @@ def phase_checkpoint(dimp_fallback, tamos_fallback, tag="checkpoint"):
 
 # ---------------------------------------------------------------- training
 
-TRAIN_SAMPLES = 48                   # per epoch: 6 steps of Settings.batch_size (8)
-TRAIN_VOS_SAMPLES = 48               # train_lwl, train_rts: 6 steps
-TRAIN_MATCHING_SAMPLES = 48          # train_kys, train_keep_track: 6 steps
+TRAIN_SAMPLES = 32                   # per epoch: 4 steps of Settings.batch_size (8), 2 timed
+TRAIN_VOS_SAMPLES = 32               # train_lwl, train_rts: 4 steps
+TRAIN_MATCHING_SAMPLES = 32          # train_kys, train_keep_track: 4 steps
 TRAIN_TIMED_FROM = 2                 # the median step time skips each run's first 2 steps
 # train_gate: card against CPU after one step from equal weights, both IEEE
 # float32, on 4 sequences of the recipe's pipeline (seed 0). With 2, the
@@ -3581,6 +3582,7 @@ def phase_train_dimp50(tag="train_dimp50"):
           f"{tag}: host synchronisations per step {syncs}")
     _moved_parameters(tag, second, "dimp", "dimp50", seeded=seeded)
     _profile_train_step(tag, second)
+    _keep_net("dimp", "dimp50", second.net)
     return k1
 
 
@@ -3886,7 +3888,7 @@ def phase_train_gate(tag="train_gate", recipe=("dimp", "dimp50"), bounds=TRAIN_G
 
 # ------------------------------------------ training: the DiMP family and ATOM
 
-TRAIN_RECIPE_STEPS = 3               # steps of each recipe in train_recipes
+TRAIN_RECIPE_STEPS = 2               # steps of each recipe in train_recipes
 TRAIN_RECIPES = (("dimp", "dimp18"), ("dimp", "prdimp18"), ("dimp", "super_dimp"),
                  ("dimp", "super_dimp_simple"), ("bbreg", "atom_paper"),
                  ("bbreg", "atom_prob_ml"), ("bbreg", "atom_gmm_sampl"), ("tomp", "tomp101"),
@@ -3902,17 +3904,21 @@ def _seeded_net(module, name):
     return net, {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
 
 
-def _train_recipe_run(tag, module, name, samples):
-    """One `run_training(module, name)` call at full width on the recipe's
-    synthetic data in an empty workspace, `samples` sequences, on the
-    recipe's seeded net: checks one epoch of finite losses, its checkpoint,
-    no fail-safe restart, one host synchronisation per step after the first
+def _train_recipe_run(tag, module, name, samples, net=None, **run_kwargs):
+    """One `run_training(module, name)` call at full width in an empty
+    workspace, `samples` sequences of the recipe's synthetic data (of
+    `datasets` where run_kwargs give them), on `net` (the recipe's seeded
+    net where None): checks one epoch of finite losses, its checkpoint, no
+    fail-safe restart, one host synchronisation per step after the first
     and K1 not launched. Returns (trainer, seconds, peak device memory, K1's
     launches, the net's state before training on the host)."""
     from pytracking_tpu_torch.run_training import run_training
 
     root = _train_workspace(tag)
-    net, seeded = _seeded_net(module, name)
+    if net is None:
+        net, seeded = _seeded_net(module, name)
+    else:
+        seeded = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
     syncs = []
     with _counted_train_syncs(syncs):
         _k1_zero()
@@ -3920,12 +3926,13 @@ def _train_recipe_run(tag, module, name, samples):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         trainer = run_training(module, name, max_epochs=1, samples_per_epoch=samples,
-                               device="cuda", net=net)
+                               device="cuda", net=net, **run_kwargs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         k1 = _k1_path(tag)
     peak = torch.cuda.max_memory_allocated()
     log, steps = trainer.step_log, len(trainer.loaders[0])
+    _keep_net(module, name, trainer.net)
     ckpt = os.path.join(root, "checkpoints", module, name, "ep0001.ckpt")
     check([r["epoch"] for r in log] == [1] * steps, f"{tag}: epochs {[r['epoch'] for r in log]}")
     check(np.isfinite([r["loss"] for r in log]).all(), f"{tag}: a loss is not finite")
@@ -4483,6 +4490,205 @@ def phase_train_keep_track(tag="train_keep_track"):
     return k1
 
 
+# ------------------------------------------------ training from datasets on disk
+
+TREE_FRAMES = 30                     # per video sequence: the samplers' max_gap draws fall inside
+TREE_STEPS = {("dimp", "dimp50"): 3, ("lwl", "lwl_stage2"): 2, ("tamos", "tamos_resnet50"): 2,
+              ("keep_track", "keep_track"): 2}
+_TRAINED_NETS = {}                   # TREE_STEPS' recipes: the net their train_* phase trained
+
+
+def _keep_net(module, name, net):
+    """Keeps, for train_datasets, the net a training phase trained."""
+    if (module, name) in TREE_STEPS:
+        _TRAINED_NETS[(module, name)] = net
+
+
+def _tree_mixes(paths):
+    """The readers of each recipe's mix over the written trees: upstream's
+    DiMP-50 mix, LWL's video datasets, TaMOs's multi-object ones."""
+    from pytracking_tpu_torch.training.datasets.coco_seq import MSCOCOSeq
+    from pytracking_tpu_torch.training.datasets.got10k import Got10k
+    from pytracking_tpu_torch.training.datasets.lasot import Lasot
+    from pytracking_tpu_torch.training.datasets.mot_datasets import (ImagenetVIDMOT,
+                                                                     MSCOCOMOTSeq)
+    from pytracking_tpu_torch.training.datasets.tao_burst import TAOBURST
+    from pytracking_tpu_torch.training.datasets.tracking_net import TrackingNet
+    from pytracking_tpu_torch.training.datasets.vos_base import Davis, YouTubeVOS
+
+    return {("dimp", "dimp50"): [Lasot(paths["lasot"], split="train"),
+                                 Got10k(paths["got10k"], split="vottrain"),
+                                 TrackingNet(paths["trackingnet"], set_ids=[0, 1, 2, 3]),
+                                 MSCOCOSeq(paths["coco"])],
+            ("lwl", "lwl_stage2"): [YouTubeVOS(paths["youtubevos"]), Davis(paths["davis"])],
+            ("tamos", "tamos_resnet50"): [MSCOCOMOTSeq(paths["coco"]),
+                                          ImagenetVIDMOT(paths["imagenet_vid"]),
+                                          TAOBURST(paths["taoburst"])]}
+
+
+def _layout(batch):
+    """{key: (shape, dtype)} of a loader's batch (the type of what is not
+    an array)."""
+    return {k: (v.shape, str(v.dtype)) if isinstance(v, np.ndarray) else type(v).__name__
+            for k, v in batch.items()}
+
+
+def _synthetic_layout(module, name):
+    """The layout of a batch of the recipe's own synthetic samples, made as
+    its `run` makes them."""
+    from pytracking_tpu_torch.training.loader import _stack_dim1
+    from pytracking_tpu_torch.training.settings import Settings
+
+    recipe, settings = _recipe(module, name), Settings()
+    if module == "tamos":
+        settings.output_sz, settings.feature_sz = recipe.OUTPUT_SZ, recipe.OUTPUT_SZ // 16
+    source = recipe.make_sampler(settings, samples_per_epoch=settings.batch_size, seed=0)
+    return _layout(_stack_dim1([source[i] for i in range(settings.batch_size)],
+                               getattr(recipe, "STACK_DIM", 1)))
+
+
+@contextlib.contextmanager
+def _first_upload(record):
+    """While open, the first batch the trainers upload is appended to
+    `record`: (the loader's host batch, its tensors on the card)."""
+    from pytracking_tpu_torch.training import trainer as trainer_mod
+
+    upload = trainer_mod.batch_to_device
+
+    def capture(batch, device):
+        out = upload(batch, device)
+        if not record:
+            record.append((batch, dict(out)))
+        return out
+
+    trainer_mod.batch_to_device = capture
+    try:
+        yield record
+    finally:
+        trainer_mod.batch_to_device = upload
+
+
+def _tree_run(tag, module, name, datasets):
+    """`run_training(module, name, datasets=datasets)` for TREE_STEPS steps
+    of 8 on the net its train_* phase trained (the seeded one where that
+    phase did not run): _train_recipe_run's checks, every trained parameter
+    with a gradient moved, the first batch's layout that of the recipe's
+    synthetic batches and, read back from the card, bit for bit the host's
+    batch; ms per step, the loader's wait, sequences/s, peak memory.
+    Returns K1's launches."""
+    from pytracking_tpu_torch.training.trainer import IMAGE_KEYS
+
+    steps = TREE_STEPS[(module, name)]
+    record = []
+    with _first_upload(record):
+        trainer, seconds, peak, k1, seeded = _train_recipe_run(
+            tag, module, name, 8 * steps, net=_TRAINED_NETS.get((module, name)),
+            datasets=datasets)
+    check(len(trainer.step_log) == steps, f"{tag}: {len(trainer.step_log)} steps")
+    _moved_parameters(tag, trainer, module, name, reached=module != "dimp", seeded=seeded)
+    host, dev = record[0]
+    synthetic = _synthetic_layout(module, name)
+    check(_layout(host) == synthetic, f"{tag}: the batch's layout {_layout(host)} is not the "
+          f"synthetic batches' {synthetic}")
+    for k, t in dev.items():
+        if not isinstance(t, torch.Tensor):
+            continue
+        got = (t.movedim(-3, -1) if k in IMAGE_KEYS else t).cpu().numpy()
+        check(got.dtype == host[k].dtype and np.array_equal(got, host[k]),
+              f"{tag}: {k} read back from the card differs from the host's batch")
+    print(f"{tag}: the first batch's {len(dev)} arrays read back from the card bit for bit the "
+          f"host's; keys, shapes and dtypes those of the synthetic batches "
+          f"({', '.join(f'{k} {v[0]}' for k, v in synthetic.items() if isinstance(v, tuple))})",
+          flush=True)
+    _step_report(tag, (trainer,), peak, first=1)
+    print(f"{tag}: on {_card()}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def _check_candidates(tag, path, seqs):
+    """The candidate file: one entry per tracked frame of each sequence,
+    each in one of the four states, some usable. Returns the states'
+    counts."""
+    from pytracking_tpu_torch.util_scripts.create_distractor_dataset import STATES
+
+    with open(path) as f:
+        data = json.load(f)
+    check(sorted(data) == sorted(s.name for s in seqs),
+          f"{tag}: the file holds {sorted(data)}, the dataset {[s.name for s in seqs]}")
+    for s in seqs:
+        check(sorted(data[s.name], key=int) == [str(i) for i in range(1, len(s.frames))],
+              f"{tag}: {s.name}: entries {sorted(data[s.name], key=int)} for "
+              f"{len(s.frames) - 1} tracked frames")
+    states = collections.Counter(fd["state"] for d in data.values() for fd in d.values())
+    check(set(states) <= set(STATES), f"{tag}: states {dict(states)}")
+    check(states["target_only"] + states["target_with_distractors"] > 0,
+          f"{tag}: no usable frame: {dict(states)}")
+    return states
+
+
+def phase_train_datasets(tag="train_datasets"):
+    """Training from datasets on disk. `training_trees` writes the readers'
+    trees under .chip_scratch/train_datasets/ (TREE_FRAMES frames per video
+    sequence: LaSOT, GOT-10k, TrackingNet, YouTube-VOS and ImageNet-VID and
+    TAO-BURST at 1280x720, DAVIS at 854x480, COCO at 640x480, as JPEG with
+    indexed-PNG label maps and the split files). Then, through
+    `run_training` at full width, IEEE float32, 8 sequences per step
+    (_tree_run): DiMP-50 on Lasot(split='train'), Got10k(split='vottrain'),
+    TrackingNet(set_ids=[0..3]) and MSCOCOSeq, 3 steps; LWL stage 2 on
+    YouTubeVOS and Davis, 2 steps; TaMOs-R50 on MSCOCOMOTSeq,
+    ImagenetVIDMOT and TAOBURST, 2 steps; KeepTrack, 2 steps, from the
+    candidate file that `create_distractor_dataset.run_tracker("dimp",
+    "super_dimp", "lasot_train", ...)` dumps over the LaSOT tree on the
+    card (_check_candidates), through CandidateMatchingDataset and
+    CandidateMatchingSampler with TargetCandidateMatchingProcessing at the
+    recipe's IM_SZ and K. K1 0 in each run's own window. Returns K1's
+    launches by path."""
+    import shutil
+
+    from pytracking_tpu_torch.evaluation.datasets import get_dataset
+    from pytracking_tpu_torch.training.datasets import training_trees
+    from pytracking_tpu_torch.training.datasets.candidate_matching import (
+        CandidateMatchingDataset, CandidateMatchingSampler)
+    from pytracking_tpu_torch.training.processing import TargetCandidateMatchingProcessing
+    from pytracking_tpu_torch.util_scripts.create_distractor_dataset import run_tracker
+
+    root = _empty_dir(tag)
+    t0 = time.perf_counter()
+    paths = training_trees.write_training_trees(
+        root, frames=TREE_FRAMES, trees=tuple(t for t in training_trees.TREES if t != "seg"))
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    print(f"{tag}: wrote {len(files)} files, {sum(map(os.path.getsize, files)) / 2 ** 20:.1f} "
+          f"MiB, in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {}
+    with _benchmark_env(paths, training_trees):
+        for (module, name), datasets in _tree_mixes(paths).items():
+            launches[f"{tag}_{name}"] = _tree_run(f"{tag}/{name}", module, name, datasets)
+
+        sub = f"{tag}/distractor_dump"
+        _k1_zero()
+        t0 = time.perf_counter()
+        path = run_tracker("dimp", "super_dimp", "lasot_train", os.path.join(root, "candidates"))
+        seconds = time.perf_counter() - t0
+        launches[f"{tag}_distractor_dump"] = _k1_path(sub)
+        seqs = get_dataset("lasot_train")
+        states = _check_candidates(sub, path, seqs)
+        print(f"{sub}: SuperDiMP over {len(seqs)} LaSOT sequences ({sum(states.values())} tracked "
+              f"frames of 1280x720) in {seconds:.1f} s (net built); states {dict(states)}",
+              flush=True)
+        recipe = _recipe("keep_track", "keep_track")
+        sampler = CandidateMatchingSampler(
+            CandidateMatchingDataset(seqs, path), K=recipe.K,
+            samples_per_epoch=8 * TREE_STEPS[("keep_track", "keep_track")],
+            processing=TargetCandidateMatchingProcessing(output_sz=recipe.IM_SZ,
+                                                         num_target_candidates=recipe.K))
+        launches[f"{tag}_keep_track"] = _tree_run(f"{tag}/keep_track", "keep_track",
+                                                  "keep_track", [sampler])
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 class PhaseClock:
     """Wall time per phase of `main`: each call ends the running phase,
     printing `phase <tag>: <seconds> s`, and starts the one it names
@@ -4740,6 +4946,8 @@ def main():
         phase = at("train_keep_track_gate")
         kernel["launches_by_path"]["train_keep_track_gate"] = phase_train_gate(
             phase, ("keep_track", "keep_track"), TRAIN_KEEP_TRACK_GATE_BOUNDS)
+        phase = at("train_datasets")
+        kernel["launches_by_path"].update(phase_train_datasets())
     except Exception as e:  # report which phase failed, then fail the run
         at(None)
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}", flush=True)

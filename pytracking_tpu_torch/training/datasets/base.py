@@ -1,10 +1,13 @@
 """Training dataset API (counterpart of
 pytracking_tpu/training/datasets/base.py). Frames are numpy HWC RGB; a
 sequence's info is a dict of per-frame arrays {'bbox': (L, 4), 'valid':
-(L,), 'visible': (L,)}."""
+(L,), 'visible': (L,)}. A reader on disk checks its root first
+(`require_dir`), so that a missing tree raises naming the path instead of
+reading as an empty dataset."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,3 +50,10 @@ class BaseVideoDataset:
 class BaseImageDataset(BaseVideoDataset):
     def is_video_sequence(self) -> bool:
         return False
+
+
+def require_dir(path: str, what: str) -> str:
+    """`path`, where it is a directory; else FileNotFoundError naming it."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"{what}: no directory {os.path.abspath(path)}")
+    return path

@@ -2,7 +2,8 @@
 resize, labels and proposals (counterpart of
 pytracking_tpu/training/processing.py `BaseProcessing`, `DiMPProcessing`,
 `ATOMProcessing`, `KLDiMPProcessing`, `ToMPProcessing`, `TaMOsProcessing`,
-`LWLProcessing`, `RTSProcessing`, `KYSProcessing`).
+`LWLProcessing`, `RTSProcessing`, `KYSProcessing`,
+`TargetCandidateMatchingProcessing`).
 Host-side numpy; the result is a dict of fixed-shape float32 arrays. The
 random draws come from the generators the sampler passes in.
 """
@@ -468,3 +469,232 @@ class KYSProcessing(BaseProcessing):
             data["test_label"] = [label(a) * (1.0 - absent[i])
                                   for i, a in enumerate(data["test_anno"])]
         return data
+
+
+class TargetCandidateMatchingProcessing(BaseProcessing):
+    """KeepTrack's candidate matching samples (the JAX package's
+    TargetCandidateMatchingProcessing). 'self_sup': one frame cropped twice,
+    at its search area and at a jittered copy of it, the candidates matched
+    to themselves, a random quarter of them at most dropped from one view
+    (re-detection and occlusion), the empty of the K slots filled with fake
+    candidates at the farthest of 20 random points inside the search areas,
+    and the second view's scores and coordinates noised. 'partial_sup': two
+    frames, only the annotated target's candidates matched (with
+    probability 0.25 dropped from one frame), the other real candidates
+    ignored. Assignment entries: 1 match; in gt_matches the matched slot,
+    -1 unmatched (the dustbin), -2 ignored. The draws come from `np_rng`
+    in the JAX class's order."""
+
+    def __init__(self, output_sz, num_target_candidates: int = 5, score_map_sz=(23, 23),
+                 enable_search_area_aug: bool = True, search_area_jitter_value: int = 100,
+                 img_aug_transform: Optional[Transform] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.output_sz = output_sz
+        self.K = num_target_candidates
+        self.score_map_sz = score_map_sz
+        self.enable_search_area_aug = enable_search_area_aug
+        self.sa_jitter = search_area_jitter_value
+        self.img_aug_transform = img_aug_transform
+
+    def _candidate_drop_out(self, coords0, coords1, np_rng):
+        n = min(coords1.shape[0], self.K)
+        n_drop = int(round(0.25 * n * np_rng.rand()))
+        idx = np_rng.permutation(n)[:n_drop]
+        pad0 = np.zeros((self.K, 2), np.float32)
+        pad1 = np.zeros((self.K, 2), np.float32)
+        valid0 = np.zeros(self.K, np.float32)
+        valid1 = np.zeros(self.K, np.float32)
+        pad0[:n] = coords0[:n]
+        pad1[:n] = coords1[:n]
+        valid0[:n] = 1
+        valid1[:n] = 1
+        if np_rng.rand() < 0.5:
+            pad0[idx] = 0
+            valid0[idx] = 0
+        else:
+            pad1[idx] = 0
+            valid1[idx] = 0
+        return pad0, pad1, valid0, valid1
+
+    def _pad_with_fake_candidates(self, pads, valids, sa_boxes, im_shape, np_rng):
+        """Each empty slot, slot by slot and view by view, gets the one of 20
+        uniform points inside its view's search area (clipped to the image)
+        farthest from every filled slot of both views."""
+        H, W = im_shape[:2]
+        lows, highs = [], []
+        for sa in sa_boxes:
+            x, y, w, h = [int(v) for v in sa]
+            lows.append((max(0, y), max(0, x)))
+            highs.append((min(H, y + h), min(W, x + w)))
+        filled = [v.copy() for v in valids]
+        for i in range(self.K):
+            for k in range(len(pads)):
+                if filled[k][i] == 0:
+                    cs = np.stack([
+                        np_rng.rand(20) * (highs[k][0] - lows[k][0]) + lows[k][0],
+                        np_rng.rand(20) * (highs[k][1] - lows[k][1]) + lows[k][1],
+                    ], axis=1)
+                    used = np.concatenate([p[f == 1] for p, f in zip(pads, filled)])
+                    if used.size:
+                        dist = np.sqrt(((used[:, None] - cs[None]) ** 2).sum(-1))
+                        best = int(dist.min(axis=0).argmax())
+                    else:
+                        best = 0
+                    pads[k][i] = cs[best]
+                    filled[k][i] = 1
+        return pads
+
+    def _fake_scores(self, scores, valid, np_rng):
+        out = np.zeros(self.K, np.float32)
+        n = min(len(scores), self.K)
+        out[:n][valid[:n] == 1] = np.asarray(scores, np.float32)[:n][valid[:n] == 1]
+        n_fake = int((valid == 0).sum())
+        out[valid == 0] = np.minimum(np.abs(np_rng.randn(n_fake)) / 50, 0.025) + 0.05
+        return out
+
+    def _augment_scores(self, scores, valid, np_rng):
+        out = scores.copy()
+        m = valid == 1
+        out[m] = np.clip(out[m] + 0.1 * np_rng.randn(int(m.sum())), 0.001, None)
+        return out
+
+    def _augment_coords(self, coords, valid, np_rng):
+        out = coords.copy()
+        m = valid == 1
+        out[m] = out[m] + np_rng.randn(int(m.sum()), 2) * 2.0
+        return out
+
+    def _img_to_tsm(self, img_coords, sa_box):
+        x, y, w, h = [float(v) for v in sa_box]
+        r = np.round((img_coords[:, 0] - y) / h * (self.score_map_sz[0] - 1))
+        c = np.round((img_coords[:, 1] - x) / w * (self.score_map_sz[1] - 1))
+        return np.stack([np.clip(r, 0, self.score_map_sz[0] - 1),
+                         np.clip(c, 0, self.score_map_sz[1] - 1)], axis=1).astype(np.int64)
+
+    def _tsm_to_img(self, tsm_coords, sa_box):
+        x, y, w, h = [float(v) for v in sa_box]
+        return np.stack([
+            h * (tsm_coords[:, 0].astype(np.float32) / (self.score_map_sz[0] - 1)) + y,
+            w * (tsm_coords[:, 1].astype(np.float32) / (self.score_map_sz[1] - 1)) + x,
+        ], axis=1)
+
+    def __call__(self, data: dict, rng: random.Random,
+                 np_rng: np.random.RandomState) -> dict:
+        """data {'sup_mode', 'img', 'search_area_box' (x, y, w, h),
+        'target_candidate_coords' (score-map cells, (row, col)),
+        'target_candidate_scores'[, 'target_anno_coord']} (lists over the
+        frames) -> the two crops, each view's K candidates in image (y, x)
+        and score-map coordinates, scores and validity, and the
+        assignment."""
+        if data.get("sup_mode", "self_sup") == "self_sup":
+            return self._self_sup(data, rng, np_rng)
+        return self._partial_sup(data, rng, np_rng)
+
+    def _self_sup(self, data, rng, np_rng):
+        img = np.asarray(data["img"][0])
+        tsm_coords = np.asarray(data["target_candidate_coords"][0])
+        scores = np.asarray(data["target_candidate_scores"][0], np.float32)
+        sa_box0 = np.asarray(data["search_area_box"][0], np.float32)
+        sa_box1 = sa_box0.copy()
+        if self.enable_search_area_aug:
+            x, y, w, h = [int(v) for v in sa_box0]
+            j = self.sa_jitter
+            sa_box1 = np.array([x + np_rng.randint(-w // j, w // j + 1),
+                                y + np_rng.randint(-h // j, h // j + 1),
+                                w + np_rng.randint(-w // j, w // j + 1),
+                                h + np_rng.randint(-h // j, h // j + 1)], np.float32)
+        crop0 = prutils.sample_target_from_crop_region(img, sa_box0, self.output_sz)
+        crop1 = prutils.sample_target_from_crop_region(img, sa_box1, self.output_sz)
+        if self.transform["train"] is not None:
+            crop0 = np.asarray(self.transform["train"](image=[crop0], rng=rng,
+                                                       np_rng=np_rng)[0], np.float32)
+        if self.img_aug_transform is not None:
+            crop1 = np.asarray(self.img_aug_transform(image=[crop1], rng=rng,
+                                                      np_rng=np_rng)[0], np.float32)
+        img_coords = self._tsm_to_img(tsm_coords, sa_box0)
+        p0, p1, v0, v1 = self._candidate_drop_out(img_coords, img_coords.copy(), np_rng)
+        p0, p1 = self._pad_with_fake_candidates([p0, p1], [v0, v1], [sa_box0, sa_box1],
+                                                img.shape, np_rng)
+        s0 = self._fake_scores(scores, v0, np_rng)
+        s1 = self._augment_scores(self._fake_scores(scores, v1, np_rng), v1, np_rng)
+        p1 = self._augment_coords(p1, v1, np_rng)
+
+        gt_assign = np.zeros((self.K, self.K), np.float32)
+        gt_assign[np.arange(self.K), np.arange(self.K)] = v0 * v1
+        gt_m0 = np.arange(self.K, dtype=np.float32)
+        gt_m1 = np.arange(self.K, dtype=np.float32)
+        gt_m0[(v0 == 0) | (v1 == 0)] = -1
+        gt_m1[(v0 == 0) | (v1 == 0)] = -1
+        return {
+            "img_cropped0": np.asarray(crop0, np.float32),
+            "img_cropped1": np.asarray(crop1, np.float32),
+            "candidate_img_coords0": p0, "candidate_img_coords1": p1,
+            "candidate_tsm_coords0": self._img_to_tsm(p0, sa_box0),
+            # real candidates keep frame 0's search area; fakes were drawn in the jittered one
+            "candidate_tsm_coords1": np.where((v1 == 1)[:, None], self._img_to_tsm(p1, sa_box0),
+                                              self._img_to_tsm(p1, sa_box1)),
+            "candidate_scores0": s0, "candidate_scores1": s1,
+            "candidate_valid0": v0, "candidate_valid1": v1,
+            "img_shape0": np.asarray(img.shape[:2], np.int64),
+            "img_shape1": np.asarray(img.shape[:2], np.int64),
+            "gt_assignment": gt_assign, "gt_matches0": gt_m0, "gt_matches1": gt_m1,
+        }
+
+    def _partial_sup(self, data, rng, np_rng):
+        imgs = [np.asarray(i) for i in data["img"]]
+        sa = [np.asarray(b, np.float32) for b in data["search_area_box"]]
+        tsm = [np.asarray(c) for c in data["target_candidate_coords"]]
+        scores = [np.asarray(s, np.float32) for s in data["target_candidate_scores"]]
+        anno = [np.asarray(a) for a in data["target_anno_coord"]]
+
+        crops = [prutils.sample_target_from_crop_region(im, b, self.output_sz)
+                 for im, b in zip(imgs, sa)]
+        if self.transform["train"] is not None:
+            crops = [np.asarray(self.transform["train"](image=[c], rng=rng, np_rng=np_rng)[0],
+                                np.float32) for c in crops]
+
+        # the target's candidate: the nearest to the annotation (L1, in cells)
+        g0, g1 = [int(np.abs(c - a[None]).sum(axis=1).argmin()) for c, a in zip(tsm, anno)]
+        img_coords = [self._tsm_to_img(t, b) for t, b in zip(tsm, sa)]
+
+        drop = np_rng.rand() < 0.25
+        frame_id = np_rng.randint(2)
+        pads, valids = [], []
+        for k, gi in enumerate((g0, g1)):
+            pad = np.zeros((self.K, 2), np.float32)
+            val = np.zeros(self.K, np.float32)
+            n = min(len(img_coords[k]), self.K)
+            pad[:n] = img_coords[k][:n]
+            val[:n] = 1
+            if drop and frame_id == k and gi < self.K:
+                pad[gi] = 0
+                val[gi] = 0
+            pads.append(pad)
+            valids.append(val)
+        pads = self._pad_with_fake_candidates(pads, valids, sa, imgs[0].shape, np_rng)
+        s_pad = [self._fake_scores(s, v, np_rng) for s, v in zip(scores, valids)]
+
+        gt_assign = np.zeros((self.K, self.K), np.float32)
+        gt_m0 = np.full(self.K, -2, np.float32)
+        gt_m1 = np.full(self.K, -2, np.float32)
+        if g0 < self.K and g1 < self.K:
+            gt_assign[g0, g1] = valids[0][g0] * valids[1][g1]
+            if drop and frame_id == 0:
+                gt_m1[g1] = -1
+            elif drop and frame_id == 1:
+                gt_m0[g0] = -1
+            else:
+                gt_m0[g0] = g1
+                gt_m1[g1] = g0
+        return {
+            "img_cropped0": np.asarray(crops[0], np.float32),
+            "img_cropped1": np.asarray(crops[1], np.float32),
+            "candidate_img_coords0": pads[0], "candidate_img_coords1": pads[1],
+            "candidate_tsm_coords0": self._img_to_tsm(pads[0], sa[0]),
+            "candidate_tsm_coords1": self._img_to_tsm(pads[1], sa[1]),
+            "candidate_scores0": s_pad[0], "candidate_scores1": s_pad[1],
+            "candidate_valid0": valids[0], "candidate_valid1": valids[1],
+            "img_shape0": np.asarray(imgs[0].shape[:2], np.int64),
+            "img_shape1": np.asarray(imgs[1].shape[:2], np.int64),
+            "gt_assignment": gt_assign, "gt_matches0": gt_m0, "gt_matches1": gt_m1,
+        }

@@ -22,6 +22,13 @@ import numpy as np
 
 
 class TrackingSampler:
+    # whether a dataset's 'mask' annotation goes into train_masks /
+    # test_masks: only for the segmentation recipes (LWLSampler), as
+    # upstream; a box recipe's processing would pass the frame-sized masks
+    # on uncropped, and a batch mixing them with a video dataset's samples
+    # could not be collated
+    carries_masks = False
+
     def __init__(self, datasets: List, p_datasets: Optional[List[float]] = None,
                  samples_per_epoch: int = 1000, max_gap: int = 30,
                  num_test_frames: int = 1, num_train_frames: int = 3,
@@ -130,7 +137,7 @@ class TrackingSampler:
         data = {"train_images": train_frames, "train_anno": train_anno["bbox"],
                 "test_images": test_frames, "test_anno": test_anno["bbox"],
                 "dataset": dataset.get_name()}
-        if "mask" in train_anno:
+        if self.carries_masks and "mask" in train_anno:
             data["train_masks"] = train_anno["mask"]
             data["test_masks"] = test_anno["mask"]
         if self.processing is not None:
@@ -156,6 +163,8 @@ class ATOMSampler(TrackingSampler):
 class LWLSampler(TrackingSampler):
     """LWL's and RTS's sampler: the tracking sampler's frames, with a
     dataset's 'mask' annotation carried into train_masks / test_masks."""
+
+    carries_masks = True
 
 
 class TaMOsDatasetSampler(TrackingSampler):

@@ -4,8 +4,9 @@ own scripts (scripts/dimp_check.py, scripts/k1_check.py,
 scripts/tomp_check.py, scripts/kys_check.py, scripts/keep_track_check.py,
 scripts/lwl_check.py, scripts/atom_eco_check.py, scripts/serving_check.py,
 scripts/train_check.py, scripts/checkpoint_check.py) import no JAX, no
-flax and nothing of the JAX package (the dataset adapters, the VOT entry
-and the result packers among them), the VOT toolkit's manifests in
+flax and nothing of the JAX package (the dataset adapters, the VOT entry,
+the result packers, the training dataset readers and the distractor dump
+among them), the VOT toolkit's manifests in
 pytracking_tpu_torch/VOT/ name only the port, and the port's entry points
 refuse to run on a CUDA device that is absent instead of falling back to the
 CPU."""
@@ -60,6 +61,43 @@ def test_no_jax_imports_in_port_sources(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+# the training dataset readers, their tree writer and the distractor dump
+TRAINING_DATA_MODULES = tuple(
+    f"pytracking_tpu_torch.training.datasets.{m}" for m in (
+        "lasot", "got10k", "tracking_net", "coco_seq", "imagenetvid", "mot_datasets",
+        "tao_burst", "vos_base", "vos_wrappers", "seg_images", "synthetic_video_blend",
+        "candidate_matching", "training_trees")) + (
+    "pytracking_tpu_torch.util_scripts.create_distractor_dataset",)
+
+
+def test_training_data_modules_are_checked():
+    """Each of them is among the modules the two tests above read and
+    import with JAX blocked."""
+    assert set(TRAINING_DATA_MODULES) <= set(_port_modules())
+
+
+def test_distractor_dump_raises_without_cuda(tmp_path, monkeypatch):
+    """`run_tracker` of the distractor dump (also from the command line)
+    defaults to the card and refuses to run without one, before it writes
+    anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal only shows without one")
+    from pytracking_tpu_torch.evaluation import environment
+    from pytracking_tpu_torch.util_scripts import create_distractor_dataset as cdd
+
+    monkeypatch.setenv("PYTRACKING_TPU_TORCH_ROOT", str(tmp_path / "root"))
+    environment.reset_env_settings()
+    save_dir = tmp_path / "dump"
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cdd.run_tracker("dimp", "super_dimp", "lasot_train", str(save_dir))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cdd.main(["dimp", "super_dimp", "lasot_train", str(save_dir)])
+    finally:
+        environment.reset_env_settings()
+    assert not save_dir.exists()
 
 
 @pytest.mark.parametrize("name", sorted(os.listdir(os.path.join(PKG, "VOT"))))
