@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the tracker gives it and on six key masks (K1
               skips key tiles with no kept key), with times beside the plain
-              version, the PyTorch library call and the card's bound;
+              version, the PyTorch library call and the card's bound; K1
+              also at the served TaMOs step's batch (16, 2592, 8, 32);
   4. main     TaMOs-R50 in bf16 at full width (random weights from a seed):
               `initialize` on a synthetic 480x640 frame with two objects,
               then `track` over 45 frames; finite outputs, and the kernel
@@ -144,7 +145,16 @@ Phases (any failure exits non-zero and prints no result line):
               replace indices, boxes, filters), serving_superdimp (SuperDiMP
               at B = 8, 40 steps, its score peaks against its cut),
               serving_bf16_gate (the default bf16 server against the f32
-              server, 8 streams x 10 steps: the score statistics).
+              server, 8 streams x 10 steps: the score statistics);
+              serving_tomp (ToMP-50 f32, B = 1, 8, 32), serving_tamos
+              (TaMOs-R50 bf16, B = 1, 4, 8: K1 6 per step at every B, on
+              the mask the kernels phase timed at the served batch 2B = 16)
+              and serving_kys (KYS f32, B = 8, 45 steps, the ticks after
+              steps 20 and 40), each class through its own stream-axis step,
+              reported and checked as `serving`, against `tomp`, `main` and
+              `kys`; serving_families_gate (each of the three at 4 streams
+              against 4 single trackers on the card, 10 steps, KYS's tick
+              among them: flags, stored counts, boxes).
  29. harness_*  the evaluation harness (`evaluation/`, `analysis/`,
               `run_tracker`), each phase in an empty results root under
               .chip_scratch/harness/, each checking a result file with one
@@ -293,6 +303,8 @@ PEAK_SFU_EXP = 132 * 16 * 1.83e9
 K1_KERNEL = "mha_fwd"                # both of K1's kernels' names start so
 TAMOS_SHAPE = (2, 2592, 8, 32)      # B (cls + bbreg copies), L (2 memory + 1 test frames
                                     # of 24x36 tokens), heads, head dim
+SERVING_TAMOS_STREAMS = (1, 4, 8)
+TAMOS_SERVED_SHAPE = (2 * max(SERVING_TAMOS_STREAMS),) + TAMOS_SHAPE[1:]   # one served step's
 N_FRAMES = 45                       # TaMOs-R50 and -SwinBase: 40 timed after warm-up
 KYS_FRAMES = 110                    # its checks' events come late
 DIMP_FRAMES = 45                     # DiMP-50, PrDiMP-50, ToMP-50: refits at 20 and 40
@@ -531,9 +543,27 @@ def _bound(keep, shape, element_size):
     return max(times.values()) * 1e3, times, kept
 
 
+def _k1_against_plain(what, q, k, v, keep, sm_scale=None):
+    """K1 (bf16) against its plain version and a float32 oracle on the same
+    inputs. Returns (the kernel's output, max|kernel - plain|)."""
+    from pytracking_tpu_torch.ops import fused_mha
+
+    ref = fused_mha.fused_self_attention_reference
+    out = fused_mha.fused_self_attention(q, k, v, keep, sm_scale)
+    torch.cuda.synchronize()
+    e = (out.float() - ref(q, k, v, keep, sm_scale).float()).abs().max().item()
+    e32 = (out.float() - ref(q.float(), k.float(), v.float(), keep, sm_scale)).abs().max().item()
+    print(f"kernel bf16 {tuple(q.shape)}, {what}: max|kernel-plain| {e:.3e} "
+          f"(<= 2e-2), max|kernel-f32 oracle| {e32:.3e} (<= 0.05)", flush=True)
+    check(e <= 2e-2 and e32 <= 0.05, f"bf16 kernel disagrees with plain ({what})")
+    return out, e
+
+
 def phase_kernels():
-    """Kernel against its plain version on the card. Returns K1's record and
-    the keep mask of the main path, on which the kernel is timed and bound."""
+    """Kernel against its plain version on the card. Returns K1's record, the
+    keep mask of the main path, on which the kernel is timed and bound, and
+    that of the served TaMOs step at TAMOS_SERVED_SHAPE, timed and bound
+    too."""
     from pytracking_tpu_torch.ops import fused_mha
     from pytracking_tpu_torch.utils.device import ieee_float32
 
@@ -543,17 +573,6 @@ def phase_kernels():
 
     def qkv(shape, dtype):
         return [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3)]
-
-    def check_bf16(what, q, k, v, keep, sm_scale=None):
-        out = fsa(q, k, v, keep, sm_scale)
-        torch.cuda.synchronize()
-        e = (out.float() - ref(q, k, v, keep, sm_scale).float()).abs().max().item()
-        e32 = (out.float() - ref(q.float(), k.float(), v.float(), keep, sm_scale)
-               ).abs().max().item()
-        print(f"kernel bf16 {tuple(q.shape)}, {what}: max|kernel-plain| {e:.3e} "
-              f"(<= 2e-2), max|kernel-f32 oracle| {e32:.3e} (<= 0.05)", flush=True)
-        check(e <= 2e-2 and e32 <= 0.05, f"bf16 kernel disagrees with plain ({what})")
-        return out, e
 
     B, L, H, D = TAMOS_SHAPE
     q, k, v = qkv(TAMOS_SHAPE, torch.bfloat16)
@@ -573,7 +592,7 @@ def phase_kernels():
     with ieee_float32():     # the float32 references in IEEE float32, not TF32
         err_plain = 0.0
         for what, keep in masks.items():
-            out, e = check_bf16(what, q, k, v, keep)
+            out, e = _k1_against_plain(what, q, k, v, keep)
             err_plain = max(err_plain, e)
         em = (out[0].float() - v[0].float().mean(0)).abs().max().item()
         print(f"fully masked entry: finite {bool(torch.isfinite(out).all())}, "
@@ -583,13 +602,13 @@ def phase_kernels():
 
         # other scales: negative, and 0 (every kept key one logit)
         for sm_scale in (-D ** -0.5, 0.0):
-            err_plain = max(err_plain, check_bf16(f"main mask, sm_scale {sm_scale:.4f}", q, k,
-                                                  v, main_keep, sm_scale)[1])
+            err_plain = max(err_plain, _k1_against_plain(f"main mask, sm_scale {sm_scale:.4f}",
+                                                         q, k, v, main_keep, sm_scale)[1])
 
         # ragged L, bf16 and float32
         q3, k3, v3 = qkv((2, 300, 8, 32), torch.bfloat16)
         keep3 = _slot_mask(2, 300, (1,), "cuda")
-        err_plain = max(err_plain, check_bf16("ragged L", q3, k3, v3, keep3)[1])
+        err_plain = max(err_plain, _k1_against_plain("ragged L", q3, k3, v3, keep3)[1])
         q32, k32, v32 = qkv((2, 300, 8, 32), torch.float32)
         out32 = fsa(q32, k32, v32, keep3)
         ref32 = ref(q32, k32, v32, keep3)
@@ -624,6 +643,37 @@ def phase_kernels():
                   f"{skipped} of {tiles}", flush=True)
             timed[what] = (kernel_ms, plain_ms, library_ms, bound_ms, times)
 
+        # the served TaMOs step's batch: the largest SERVING_TAMOS_STREAMS
+        # streams' classification and box-regression copies in one encoder
+        # pass, slot 1 masked in every entry (no stream has stored a frame)
+        served_keep = _slot_mask(TAMOS_SERVED_SHAPE[0], L, range(TAMOS_SERVED_SHAPE[0]), "cuda")
+        q5, k5, v5 = qkv(TAMOS_SERVED_SHAPE, torch.bfloat16)
+        err_plain = max(err_plain, _k1_against_plain("served batch, slot 1 masked in every entry",
+                                                     q5, k5, v5, served_keep)[1])
+        # once some streams store a frame: slot 1 kept in the classification
+        # entries of every other stream, masked in the others and in every
+        # box-regression entry (those keep slot 0 only)
+        streams = TAMOS_SERVED_SHAPE[0] // 2
+        mixed_keep = _slot_mask(TAMOS_SERVED_SHAPE[0], L, [b for b in range(2 * streams)
+                                                           if b >= streams or b % 2], "cuda")
+        err_plain = max(err_plain, _k1_against_plain(
+            "served batch, slot 1 stored in every other stream", q5, k5, v5, mixed_keep)[1])
+        q5t, k5t, v5t = (x.transpose(1, 2) for x in (q5, k5, v5))
+        kernel_ms = cuda_time_ms(lambda: fsa(q5, k5, v5, served_keep))
+        library_ms = cuda_time_ms(lambda: sdpa(q5t, k5t, v5t,
+                                               attn_mask=served_keep[:, None, None, :]))
+        plain_ms = cuda_time_ms(lambda: ref(q5, k5, v5, served_keep), iters=10)
+        bound_ms, times, kept = _bound(served_keep, TAMOS_SERVED_SHAPE, q5.element_size())
+        skipped, tiles = _skipped_tiles(served_keep)
+        print(f"served mask {TAMOS_SERVED_SHAPE}: kernel_ms {kernel_ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_us {bound_ms * 1e3:.2f} over "
+              f"{kept} kept keys (bytes {times['bytes'] * 1e6:.2f} us, matmul "
+              f"{times['matmul'] * 1e6:.2f} us, exp {times['exp'] * 1e6:.2f} us); kernel at "
+              f"{bound_ms / kernel_ms * 100:.1f}% of its bound, {library_ms / kernel_ms:.2f}x "
+              f"SDPA's speed, {kernel_ms / timed['main'][0]:.2f}x the main path's batch-2 time; "
+              f"key tiles skipped {skipped} of {tiles}", flush=True)
+        del q5, k5, v5, q5t, k5t, v5t
+
         # host time of one call (bf16 encodes three TMA maps per call; float32
         # encodes none), at a size where the card keeps up with the host:
         # the least of 5 alternating runs of 200 calls each
@@ -651,7 +701,7 @@ def phase_kernels():
               "bound_by": "bytes" if times["bytes"] >= max(times["matmul"], times["exp"])
               else "operations",
               "library_ms": library_ms}
-    return record, main_keep
+    return record, main_keep, served_keep
 
 
 def synthetic_frame(rng_bg, t, H=480, W=640):
@@ -1050,7 +1100,7 @@ def phase_tomp(name="tomp50", tag="tomp"):
     unless every frame synchronises once, every encoder pass saw the key
     padding of the slots stored before it, the memory took at least one
     update into slot 1 and, where TOMP asks for it, at least one frame was
-    not_found."""
+    not_found. Returns (spec, tracker, the median ms per frame)."""
     from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES
     from pytracking_tpu_torch.trackers.tomp import ToMPTracker
 
@@ -1124,7 +1174,7 @@ def phase_tomp(name="tomp50", tag="tomp"):
         print(f"{tag}:   sync: {msg[:300]}", flush=True)
     check(all(len(x) == 1 for x in syncs), f"{tag}: not one host synchronisation per frame: "
           f"{[len(x) for x in syncs]}")
-    return spec, tracker
+    return spec, tracker, float(np.median(steady))
 
 
 def phase_tomp_gate(spec, tag="tomp_gate", n_frames=TOMP_GATE_FRAMES, limit_px=DIMP_GATE_PX):
@@ -1216,8 +1266,12 @@ def kys_branch(have_state, prev_box_patch, params):
     return "sub" if np.all((c > band[0]) & (c < band[1])) else "center"
 
 
-def _report_frames(tag, frame_ms, init_ms, outs, flag_names):
+def _report_frames(tag, frame_ms, init_ms, outs, flag_names, medians=None):
+    """Prints the frame times; returns the flag histogram. `medians`, a
+    dict, receives the median ms per frame under `tag`."""
     steady = np.asarray(frame_ms[WARMUP_FRAMES:])
+    if medians is not None:
+        medians[tag] = float(np.median(steady))
     hist = {flag: sum(o["flag"] == flag for o in outs) for flag in flag_names}
     print(f"{tag}: init {init_ms:.1f} ms; track: {len(steady)} frames after {WARMUP_FRAMES} "
           f"warm-up, median {np.median(steady):.3f} ms/frame, p90 "
@@ -1255,6 +1309,9 @@ def _k1_path(tag):
     print(f"{tag}: fused_self_attention launches {k1} (expected 0)", flush=True)
     check(k1 == 0, f"{tag}: K1 launched {k1} times")
     return k1
+
+
+SINGLE_MEDIANS = {}                  # a single-stream phase's median ms per frame, by tag
 
 
 def phase_kys(tag="kys"):
@@ -1299,7 +1356,7 @@ def phase_kys(tag="kys"):
         st = tracker.state
         after.append((st.have_state, st.state_vector, st.motion_feat_prev, st.prev_label))
     torch.cuda.synchronize()
-    hist = _report_frames(tag, frame_ms, init_ms, outs, FLAG_NAMES)
+    hist = _report_frames(tag, frame_ms, init_ms, outs, FLAG_NAMES, SINGLE_MEDIANS)
     st = tracker.state
     for field in ("pos", "target_sz", "target_filter", "mem_weights", "state_vector",
                   "motion_feat_prev", "prev_label", "prev_box_patch"):
@@ -2299,16 +2356,20 @@ def stream_batch(rng_bg, B, t):
     return np.stack([stream_frame(rng_bg, b, t) for b in range(B)])
 
 
-def _serve(tag, spec, B, n_frames, bf16=False):
-    """A server of B streams of `spec` on the card: initialize + n_frames
-    steps. Returns (server, init ms, step ms, the steps that enqueued a
-    tick (0-based), flags (n, B), score peaks (n, B))."""
+def _serve(tag, spec, B, n_frames, bf16=False, tracker_cls=None, deferred=True,
+           fields=("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes")):
+    """A server of B streams of `spec` (a `tracker_cls`, DiMP's by default) on
+    the card: initialize + n_frames steps. Returns (server, init ms, step
+    ms, the steps that enqueued a tick (0-based), flags (n, B, ...), score
+    peaks (n, B, ...)); `fields` of the state are checked finite."""
     from pytracking_tpu_torch.parallel.serving import BatchedTrackerServer
     from pytracking_tpu_torch.trackers.dimp import DiMPTracker
 
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
-    server = BatchedTrackerServer(DiMPTracker, spec.params, spec.net, device="cuda", bf16=bf16)
-    check(server._deferred, f"{tag}: the DiMP tracker should serve with the deferred update")
+    server = BatchedTrackerServer(tracker_cls or DiMPTracker, spec.params, spec.net,
+                                  device="cuda", bf16=bf16)
+    check(server._deferred == deferred, f"{tag}: the server's deferred update should be "
+          f"{'on' if deferred else 'off'}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     server.initialize([stream_frame(bg, b, 0) for b in range(B)],
@@ -2321,23 +2382,23 @@ def _serve(tag, spec, B, n_frames, bf16=False):
         t0 = time.perf_counter()
         boxes = server.track(batch)          # reads back boxes, peaks and flags: ends in a sync
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        if server._needs_update_tick():
+        if server.tracker._serve_tick_due(server._frame_num):
             ticks.append(t - 1)
-        check(boxes.shape == (B, 4) and np.isfinite(boxes).all()
+        check(boxes.shape[0] == B and boxes.shape[-1] == 4 and np.isfinite(boxes).all()
               and np.isfinite(server.max_scores).all(), f"{tag}: bad output {boxes}")
         flags.append(server.flags.copy())
         peaks.append(server.max_scores.copy())
     torch.cuda.synchronize()
     st = server.states
-    for field in ("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes"):
+    for field in fields:
         check(bool(torch.isfinite(getattr(st, field)).all()), f"{tag}: non-finite state {field}")
     return server, init_ms, step_ms, ticks, np.array(flags), np.array(peaks)
 
 
 def _serving_syncs(tag, server, B, first):
-    """One host synchronisation per `track` step and one per deferred
-    `scan_track` call over frames already on the card. Returns the frame
-    count after them."""
+    """One host synchronisation per `track` step and one per `scan_track`
+    call over frames already on the card (a deferred DiMP-family server, or
+    a class without a refit). Returns the frame count after them."""
     bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
     msgs = [_count_syncs(lambda t=t: server.track(stream_batch(bg, B, t)))[1]
             for t in range(first, first + SERVING_SYNC_STEPS)]
@@ -2347,8 +2408,8 @@ def _serving_syncs(tag, server, B, first):
                                         range(first, first + SERVING_SCAN_FRAMES)])).cuda()
     torch.cuda.synchronize()
     boxes, scan = _count_syncs(lambda: server.scan_track(frames))
-    check(boxes.shape == (SERVING_SCAN_FRAMES, B, 4) and np.isfinite(boxes).all(),
-          f"{tag}: bad scan_track output")
+    check(boxes.shape[:2] == (SERVING_SCAN_FRAMES, B) and boxes.shape[-1] == 4
+          and np.isfinite(boxes).all(), f"{tag}: bad scan_track output")
     print(f"{tag}: B={B}: host synchronisations per track step {syncs} (target 1); one "
           f"scan_track call over {SERVING_SCAN_FRAMES} frames on the card: {len(scan)} "
           f"(target 1)", flush=True)
@@ -2404,7 +2465,7 @@ def phase_serving(dimp_median, tag="serving"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.no_grad(), ieee_float32():
-                server._update_deferred()
+                server.states = server.tracker._serve_tick(server.states)
             torch.cuda.synchronize()
             tick_ms.append((time.perf_counter() - t0) * 1e3)
         print(f"{tag}: B={B}: init {init_ms:.1f} ms; {len(steady)} steps after "
@@ -2434,7 +2495,7 @@ def phase_serving_gate(tag="serving_gate"):
     on they draw alike with no draw replayed. Flags,
     replace indices and stored counts equal, boxes within DIMP_GATE_PX,
     filters within SERVING_FILTER_GATE of scale after every step."""
-    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker, stream_state
+    from pytracking_tpu_torch.trackers.dimp import FLAG_NAMES, DiMPTracker
 
     spec = dimp_spec("dimp50")
     B = SERVING_GATE_STREAMS
@@ -2449,9 +2510,9 @@ def phase_serving_gate(tag="serving_gate"):
     first = SERVING_GATE_FREE + 1
     for t in range(first, first + DIMP_GATE_FRAMES):
         for b, tr in enumerate(singles):
-            tr.state = stream_state(server.states, b)
+            tr.state = DiMPTracker.stream_state(server.states, b)
         boxes = server.track(stream_batch(bg, B, t))
-        tick = server._needs_update_tick()
+        tick = server.tracker._serve_tick_due(server._frame_num)
         if tick:
             ticks.append(server._frame_num)
         step_px, step_rel = 0.0, 0.0
@@ -2459,7 +2520,7 @@ def phase_serving_gate(tag="serving_gate"):
             out = tr.track(stream_frame(bg, b, t))
             if tick:
                 tr.update_classifier_deferred()
-            got = stream_state(server.states, b)
+            got = DiMPTracker.stream_state(server.states, b)
             check(FLAG_NAMES[server.flags[b]] == out["flag"],
                   f"{tag}: frame {t} stream {b}: flags differ {FLAG_NAMES[server.flags[b]]} "
                   f"{out['flag']}")
@@ -2551,6 +2612,293 @@ def phase_serving_bf16_gate(tag="serving_bf16_gate"):
           f"argmax disp max {max(disp)} (<= 2)", flush=True)
     check(min(corr) > 0.98 and max(max_rel) < 0.05 and max(disp) <= 2,
           f"{tag}: bf16 gate failed")
+
+
+SERVING_TOMP_STREAMS = (1, 8, 32)
+SERVING_KYS_STREAMS = 8
+SERVING_FAMILY_STEPS = 20            # ToMP and TaMOs: 15 timed after warm-up, no tick to reach
+SERVING_FAMILY_GATE_STREAMS = 4
+SERVING_FAMILY_GATE_STEPS = 10       # KYS: after SERVING_GATE_FREE free steps, the tick at 21
+SERVING_TOMP_FIELDS = ("pos", "target_sz", "target_scale", "mem_samples", "mem_weights",
+                       "mem_boxes", "scale_history")
+TAMOS_SERVED_DISTRACTOR = 0.99       # (0.8) as ToMP-50's cut: a seeded net's score maps are flat
+SERVING_TAMOS_FIELDS = ("pos", "target_sz", "mem_samples", "mem_labels", "mem_weights",
+                        "mem_boxes")
+SERVING_KYS_FIELDS = ("pos", "target_sz", "target_filter", "mem_weights", "mem_boxes",
+                      "state_vector", "motion_feat_prev", "prev_label", "prev_box_patch")
+
+
+def _serving_family(tag, label, spec, tracker_cls, streams, n_steps, single, fields,
+                    k1_per_step=0, deferred=False, ticks=()):
+    """A family's server (IEEE f32 weights as given) at each B of `streams`,
+    n_steps steps each on `stream_frame` streams: ms per step, aggregate
+    frames/s against `single` = (its single-stream phase's tag, median ms
+    per frame) of the same call, the tick steps, kernels and launches per
+    step under the profiler, peak device memory, one synchronisation per
+    `track` step and per `scan_track` call, and K1 at `k1_per_step`
+    launches per step in every step of the phase (counted by the wrapper,
+    and by kernel name under the profiler). Returns K1's launches over the
+    phase."""
+    from pytracking_tpu_torch.ops import fused_mha
+
+    single_tag, single_ms = single
+    p = spec.params
+    print(f"{tag}: {label} server, {sum(x.numel() for x in spec.net.parameters()) / 1e6:.1f} M "
+          f"parameters, sample {p.image_sample_size}, memory {p.sample_memory_size}, "
+          f"{'deferred update every %d frames' % p.train_skipping if deferred else 'no refit'}; "
+          f"single-stream `{single_tag}` median {single_ms:.3f} ms/frame "
+          f"({1e3 / single_ms:.1f} frames/s)", flush=True)
+    bg = np.random.RandomState(1).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    _k1_zero()
+    steps_run = 0
+    for B in streams:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        k1_before = fused_mha.fused_self_attention.launches
+        server, init_ms, step_ms, got_ticks, flags, peaks = _serve(
+            tag, spec, B, n_steps, tracker_cls=tracker_cls, deferred=deferred, fields=fields)
+        k1 = fused_mha.fused_self_attention.launches - k1_before
+        peak_gib = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        steady = np.asarray(step_ms[WARMUP_FRAMES:])
+        med = float(np.median(steady))
+        check(got_ticks == list(ticks), f"{tag}: B={B}: ticks after steps {got_ticks}, "
+              f"expected {list(ticks)}")
+        check(k1 == k1_per_step * n_steps, f"{tag}: B={B}: K1 launched {k1} times in {n_steps} "
+              f"steps, expected {k1_per_step} per step")
+        stats = {}
+        t_next = server._frame_num
+        k1_prof = phase_profile(server, [stream_batch(bg, B, t) for t in _profile_range(t_next)],
+                                tag=f"{tag}_b{B}_profile", stats=stats)
+        check(k1_prof == k1_per_step * PROFILE_FRAMES, f"{tag}: B={B}: {K1_KERNEL}* ran "
+              f"{k1_prof} times in {PROFILE_FRAMES} profiled steps, expected {k1_per_step} per "
+              "step")
+        print(f"{tag}: B={B}: init {init_ms:.1f} ms; {len(steady)} steps after {WARMUP_FRAMES} "
+              f"warm-up: median {med:.3f} ms/step, p90 {np.percentile(steady, 90):.3f}, min "
+              f"{steady.min():.3f}, max {steady.max():.3f}; aggregate {B * 1e3 / med:.1f} "
+              f"frames/s, {B * single_ms / med:.2f}x the single stream; K1 {k1 / n_steps:.0f} "
+              f"launches/step; kernels {stats['kernel_ms']:.3f} ms/step, "
+              f"{stats['launches']:.0f} launches/step, busy {100 * stats['busy']:.1f}%; peak "
+              f"device memory {peak_gib:.3f} GiB over what was allocated before; flags "
+              f"{_flag_hist(flags)}; peaks {peaks.min():.4f}-{peaks.max():.4f}", flush=True)
+        _serving_syncs(tag, server, B, t_next + 3)
+        steps_run += n_steps + PROFILE_FRAMES + SERVING_SYNC_STEPS + SERVING_SCAN_FRAMES
+        del server
+    k1 = fused_mha.fused_self_attention.launches
+    print(f"{tag}: fused_self_attention launches {k1} (expected {k1_per_step} x {steps_run} "
+          f"steps)", flush=True)
+    check(k1 == k1_per_step * steps_run, f"{tag}: K1 launched {k1} times over {steps_run} steps")
+    return k1
+
+
+def phase_serving_tomp(tomp_median, tag="serving_tomp"):
+    """ToMP-50 (f32, the `tomp` phase's cuts) served at SERVING_TOMP_STREAMS
+    streams: the transformer's head dim 64 takes the plain attention (K1
+    0). Returns (spec, K1's launches)."""
+    from pytracking_tpu_torch.trackers.tomp import ToMPTracker
+
+    spec = tomp_spec("tomp50")
+    return spec, _serving_family(tag, "ToMP-50 f32", spec, ToMPTracker, SERVING_TOMP_STREAMS,
+                                 SERVING_FAMILY_STEPS, ("tomp", tomp_median), SERVING_TOMP_FIELDS)
+
+
+def _tamos_served(spec, tag):
+    """`spec` at served cuts beside the seeded net's score peaks. TaMOs-R50's
+    not-found threshold (0.25) and memory confidence (0.85) are a trained
+    net's; the seeded net's slot-0 peaks on the served streams sit near
+    0.01, where every frame is not_found, no stream writes its memory and
+    no box moves. Both cuts go to the median of the first step's peaks of
+    SERVING_FAMILY_GATE_STREAMS streams, so that about half of them find
+    their target at once and store it while the others do not, and the
+    distractor ratio to TAMOS_SERVED_DISTRACTOR."""
+    from pytracking_tpu_torch.parallel.serving import BatchedTrackerServer
+    from pytracking_tpu_torch.trackers.tamos import TaMOsTracker
+
+    B = SERVING_FAMILY_GATE_STREAMS
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    server = BatchedTrackerServer(TaMOsTracker, spec.params, spec.net, device="cuda", bf16=False)
+    server.initialize([stream_frame(bg, b, 0) for b in range(B)],
+                      [stream_box(b) for b in range(B)])
+    server.track(stream_batch(bg, B, 1))
+    peaks = server.max_scores[:, 0]
+    cut = float(np.median(peaks))
+    print(f"{tag}: first-step slot-0 peaks of {B} streams {peaks.tolist()}: not-found and "
+          f"memory-confidence cut {cut} (the module's {spec.params.target_not_found_threshold}, "
+          f"{spec.params.conf_ths}), distractor ratio {TAMOS_SERVED_DISTRACTOR} "
+          f"({spec.params.distractor_threshold})", flush=True)
+    return dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, target_not_found_threshold=cut, conf_ths=cut,
+        distractor_threshold=TAMOS_SERVED_DISTRACTOR))
+
+
+def _mixed_streams(stored, found):
+    """Whether, in some step, the streams' stored counts differ, and, in
+    some step, some streams find their target and others do not."""
+    return (any(len(set(n.tolist())) > 1 for n in stored),
+            any(len(set(f.tolist())) > 1 for f in found))
+
+
+def phase_serving_tamos(spec, served_keep, main_median, tag="serving_tamos"):
+    """TaMOs-R50 bf16 (the `main` phase's net, at the served cuts) served at
+    SERVING_TAMOS_STREAMS streams, each single-object with K slots: K1
+    exactly one launch per encoder layer (6) per step at every B, each
+    encoder pass's key mask the streams' stored slots (slot 1 masked in the
+    2B entries until a stream stores a frame), at the largest B the mask
+    `phase_kernels` timed and bound K1 on. At every B > 1 some streams find
+    their target and write their memory while others do not; K1 is held to
+    its plain version on the inputs of a served step at the largest B whose
+    mask mixes stored and empty slots. Returns K1's launches."""
+    from pytracking_tpu_torch.models.transformer import transformer
+    from pytracking_tpu_torch.trackers.tamos import FLAG_NOT_FOUND, TaMOsTracker
+    from pytracking_tpu_torch.utils.device import ieee_float32
+
+    spec = _tamos_served(spec, tag)
+    encoder = spec.net.filter_predictor.transformer.encoder
+    pad_masks, stored, found = [], [], []   # key_padding_mask (4th argument); slots stored
+    hook = encoder[0].self_attn.register_forward_pre_hook(
+        lambda m, args: pad_masks.append(args[3]))
+    step, attention = TaMOsTracker._step_streams, transformer.fused_self_attention
+    mixed_inputs = []
+    n_big = TAMOS_SERVED_SHAPE[0]
+    frame = TAMOS_SERVED_SHAPE[1] // 3
+
+    def recording(self, state, *args):
+        stored.append(state.num_stored.clone())
+        state, out = step(self, state, *args)
+        found.append(out["flag"][:, 0] != FLAG_NOT_FOUND)
+        return state, out
+
+    def keeping(q, k, v, key_keep_mask=None):
+        slot1 = key_keep_mask[:n_big // 2, frame] \
+            if q.shape[0] == n_big and key_keep_mask is not None else None
+        if not mixed_inputs and slot1 is not None and bool(slot1.any()) and \
+                not bool(slot1.all()):
+            mixed_inputs.append([x.clone() for x in (q, k, v, key_keep_mask)])
+        return attention(q, k, v, key_keep_mask=key_keep_mask)
+
+    TaMOsTracker._step_streams = recording
+    transformer.fused_self_attention = keeping
+    try:
+        k1 = _serving_family(tag, "TaMOs-R50 bf16", spec, TaMOsTracker, SERVING_TAMOS_STREAMS,
+                             SERVING_FAMILY_STEPS, ("main", main_median), SERVING_TAMOS_FIELDS,
+                             k1_per_step=len(encoder))
+    finally:
+        TaMOsTracker._step_streams = step
+        transformer.fused_self_attention = attention
+        hook.remove()
+    for B in SERVING_TAMOS_STREAMS[1:]:
+        mixed = _mixed_streams([n for n in stored if n.shape[0] == B],
+                               [f for f in found if f.shape[0] == B])
+        print(f"{tag}: B={B}: stored counts differ between streams in some step {mixed[0]}; "
+              f"found and lost streams in one step {mixed[1]}", flush=True)
+        check(all(mixed), f"{tag}: B={B}: no step where some streams find their target and "
+              "write their memory while others do not")
+    check(bool(mixed_inputs), f"{tag}: no encoder pass at batch {n_big} mixed stored and empty "
+          "slots")
+    with ieee_float32():
+        _k1_against_plain("a served step's own inputs, slot 1 stored in some streams",
+                          *mixed_inputs[0])
+    del mixed_inputs
+    L = served_keep.shape[1]
+    expected = []
+    for n in stored:          # entry b: stream b's stored slots; entry B + b: slot 0 only
+        keep = torch.ones(2 * n.shape[0], L, dtype=torch.bool, device=n.device)
+        keep[:, frame:2 * frame] = torch.cat([n >= 2, torch.zeros_like(n, dtype=torch.bool)]
+                                             )[:, None]
+        expected.append(keep)
+    layout = [bool(torch.equal(~m, e)) for m, e in zip(pad_masks, expected)]
+    served = [bool(torch.equal(~m, served_keep)) for m in pad_masks
+              if m.shape[0] == served_keep.shape[0]]
+    print(f"{tag}: {len(pad_masks)} encoder passes, batches "
+          f"{sorted({m.shape[0] for m in pad_masks})}; key mask equal to each stream's stored "
+          f"slots (classification copies) and slot 0 (box regression copies) in {sum(layout)}; "
+          f"streams with slot 1 stored, per pass: max {max(int((n >= 2).sum()) for n in stored)}; "
+          f"equal to the kernel phase's {tuple(served_keep.shape)} served mask in "
+          f"{sum(served)} of {len(served)}", flush=True)
+    check(len(layout) == len(pad_masks) and all(layout) and any(served),
+          f"{tag}: the served encoder's key mask does not follow the streams' stored slots, or "
+          "never equals the one the kernel was timed and bound on")
+    return k1
+
+
+def phase_serving_kys(kys_median, tag="serving_kys"):
+    """KYS (f32, the `kys` phase's cuts) served at SERVING_KYS_STREAMS streams
+    for SERVING_FRAMES steps, the deferred update ticking after steps 20
+    and 40 (K1 0). Returns (spec, K1's launches)."""
+    from pytracking_tpu_torch.trackers.kys import KYSTracker
+
+    spec = kys_spec()
+    return spec, _serving_family(tag, "KYS f32", spec, KYSTracker, (SERVING_KYS_STREAMS,),
+                                 SERVING_FRAMES, ("kys", kys_median), SERVING_KYS_FIELDS,
+                                 deferred=True, ticks=(19, 39))
+
+
+def phase_serving_families_gate(specs, tag="serving_families_gate"):
+    """Each family's server against SERVING_FAMILY_GATE_STREAMS single
+    trackers on the card, IEEE f32 on both, SERVING_FAMILY_GATE_STEPS steps,
+    each single started at every step from the server's stream state
+    (copied): ToMP and TaMOs (an f32 TaMOs-R50 of the same seed) from the
+    first step, KYS after SERVING_GATE_FREE free steps so that the tick at
+    frame_num 21 falls among the gated ones (its singles deferred, their
+    generators set to the server's once). Flags and stored counts equal,
+    boxes within DIMP_GATE_PX."""
+    from pytracking_tpu_torch.trackers.kys import KYSTracker
+    from pytracking_tpu_torch.trackers.tamos import TaMOsTracker
+    from pytracking_tpu_torch.trackers.tomp import ToMPTracker
+
+    B = SERVING_FAMILY_GATE_STREAMS
+    bg = np.random.RandomState(0).randint(0, 90, (480, 640, 3)).astype(np.uint8)
+    for family, cls, free in (("tomp", ToMPTracker, 0), ("tamos", TaMOsTracker, 0),
+                              ("kys", KYSTracker, SERVING_GATE_FREE)):
+        spec = _tamos_served(specs[family], f"{tag}/{family}") if family == "tamos" \
+            else specs[family]
+        kys = family == "kys"
+        server = _serve(f"{tag}/{family}", spec, B, free, tracker_cls=cls, deferred=kys,
+                        fields=())[0]
+        single_p = dataclasses.replace(spec.params, defer_classifier_update=True) if kys \
+            else spec.params
+        singles = [cls(single_p, spec.net, device="cuda") for _ in range(B)]
+        for b, tr in enumerate(singles):
+            tr.initialize(stream_frame(bg, b, 0), {"init_bbox": stream_box(b)})
+            if kys:
+                tr._generator.set_state(server.tracker._generator.get_state())
+        px, flags, ticks, stored = [], [], [], []
+        first = free + 1
+        for t in range(first, first + SERVING_FAMILY_GATE_STEPS):
+            for b, tr in enumerate(singles):
+                tr.state = server.tracker.stream_state(server.states, b)
+            boxes = server.track(stream_batch(bg, B, t))
+            tick = server.tracker._serve_tick_due(server._frame_num)
+            if tick:
+                ticks.append(server._frame_num)
+            step_px = 0.0
+            for b, tr in enumerate(singles):
+                out = tr.track(stream_frame(bg, b, t))
+                if tick:
+                    tr.update_classifier_deferred()
+                got = server.tracker.stream_state(server.states, b)
+                for name in ("flag", "num_stored"):
+                    a, c = getattr(got, name).cpu().numpy(), getattr(tr.state, name).cpu().numpy()
+                    check(np.array_equal(a, c), f"{tag}/{family}: step {t} stream {b}: {name} "
+                          f"differs: {a} {c}")
+                box = boxes[b, 0] if family == "tamos" else boxes[b]
+                step_px = max(step_px, float(np.abs(box - np.asarray(out["target_bbox"])).max()))
+            px.append(step_px)
+            flags.append(server.flags.reshape(B, -1)[:, 0].tolist())
+            stored.append(server.states.num_stored.cpu().numpy())
+        print(f"{tag}/{family}: {B} streams, steps {first}-{first + SERVING_FAMILY_GATE_STEPS - 1} "
+              f"against single trackers; ticks at frame_num {ticks}; flags (slot 0) equal "
+              f"{flags}; stored counts equal; box difference per step "
+              f"{[f'{x:.1e}' for x in px]} px (<= {DIMP_GATE_PX})", flush=True)
+        check(ticks if kys else not ticks, f"{tag}/{family}: ticks {ticks}")
+        if family == "tamos":
+            mixed = _mixed_streams(stored, [np.asarray(f) != 1 for f in flags])
+            print(f"{tag}/{family}: stored counts per step {[n.tolist() for n in stored]}; "
+                  f"some streams found and others lost in one step {mixed[1]}", flush=True)
+            check(all(mixed), f"{tag}/{family}: no step where some streams find their target "
+                  "and write their memory while others do not")
+        check(max(px) <= DIMP_GATE_PX, f"{tag}/{family}: boxes differ by {max(px)} px")
+        del server, singles
 
 
 HARNESS_DEVICE = "cuda"
@@ -4726,7 +5074,7 @@ def main():
         phase = at("build")
         phase_build()
         phase = at("kernels")
-        kernel, main_keep = phase_kernels()
+        kernel, main_keep, served_keep = phase_kernels()
         phase = at("main")
         spec, tracker, launches, main_median = phase_main(main_keep)
         kernel["launches"] = launches
@@ -4764,7 +5112,7 @@ def main():
                       tag="superdimp_profile")
         del family, tracker
         phase = at("tomp")
-        tomp_spec32, tomp_tracker = phase_tomp("tomp50", "tomp")
+        tomp_spec32, tomp_tracker, tomp_median = phase_tomp("tomp50", "tomp")
         phase = at("tomp_gate")
         phase_tomp_gate(tomp_spec32)
         phase = at("tomp_bf16_gate")
@@ -4881,6 +5229,19 @@ def main():
         kernel["launches_by_path"]["serving_superdimp"] = phase_serving_superdimp()
         phase = at("serving_bf16_gate")
         phase_serving_bf16_gate()
+        phase = at("serving_tomp")
+        tomp_served, kernel["launches_by_path"]["serving_tomp"] = phase_serving_tomp(tomp_median)
+        phase = at("serving_tamos")
+        kernel["launches_by_path"]["serving_tamos"] = phase_serving_tamos(spec, served_keep,
+                                                                          main_median)
+        phase = at("serving_kys")
+        kys_served, kernel["launches_by_path"]["serving_kys"] = phase_serving_kys(
+            SINGLE_MEDIANS["kys"])
+        phase = at("serving_families_gate")
+        tamos32 = importlib.import_module("pytracking_tpu_torch.parameter.tamos.tamos_resnet50"
+                                          ).parameters(device="cuda", seed=0)
+        phase_serving_families_gate({"tomp": tomp_served, "tamos": tamos32, "kys": kys_served})
+        del tomp_served, tamos32, kys_served
         phase = at("harness_entry")
         phase_harness_entry()
         phase = at("harness_dimp")

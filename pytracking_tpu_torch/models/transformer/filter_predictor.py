@@ -3,7 +3,8 @@ TaMOs (counterpart of pytracking_tpu/models/transformer/filter_predictor.py:
 `BoxEncoder`, `FilterPredictor`).
 
 Shapes: features (Nf, Ns, C, H, W); labels (Nf, Ns, H, W); ltrb maps
-(Nf, Ns, H, W, 4); frame masks (Nf,) bool. Token order is (frame, row, col),
+(Nf, Ns, H, W, 4); frame masks (Nf,) bool, or (Nf, Ns): one per sequence
+(the batched server's streams). Token order is (frame, row, col),
 channels last, as in the JAX package. The filter is (Ns, C), one per
 sequence.
 """
@@ -39,10 +40,11 @@ def _pos_tokens(feat: torch.Tensor, feature_sz: int) -> torch.Tensor:
 
 def _frame_key_padding(frame_mask: torch.Tensor, train_hw: int, test_len: int
                        ) -> torch.Tensor:
-    """(Nf,) frames to keep -> (Nf*train_hw + test_len,) tokens to ignore;
-    the test tokens are always kept."""
-    return torch.cat([torch.repeat_interleave(~frame_mask.bool(), train_hw),
-                      frame_mask.new_zeros(test_len, dtype=torch.bool)])
+    """(Nf,) frames to keep -> (Nf*train_hw + test_len,) tokens to ignore, or
+    (Nf, Ns) frames to keep per sequence -> (Ns, Nf*train_hw + test_len); the
+    test tokens are always kept."""
+    ignore = torch.repeat_interleave(~frame_mask.bool(), train_hw, dim=0).movedim(0, -1)
+    return torch.cat([ignore, ignore.new_zeros(ignore.shape[:-1] + (test_len,))], dim=-1)
 
 
 class BoxEncoder(nn.Module):
@@ -124,7 +126,7 @@ class FilterPredictor(nn.Module):
         """One forward over the sequence batch duplicated: copy 0 ignores the
         train frames outside `cls_frame_mask` (the classification filter),
         copy 1 those outside `bbreg_frame_mask` (the box regression filter).
-        A mask of None keeps every frame.
+        A mask of None keeps every frame; a mask is (Nf,) or (Nf, Ns).
 
         Returns (cls_filter, bbreg_filter, cls_enc, bbreg_enc): filters
         (Ns, C), enc (Nf_te, Ns, C, h, w)."""
@@ -136,6 +138,6 @@ class FilterPredictor(nn.Module):
         for fmask in (cls_frame_mask, bbreg_frame_mask):
             if fmask is None:
                 fmask = torch.ones(Nf, dtype=torch.bool, device=seq.device)
-            rows.append(_frame_key_padding(fmask, H * W, Nf_te * h * w)[None].expand(Ns, -1))
+            rows.append(_frame_key_padding(fmask, H * W, Nf_te * h * w).expand(Ns, -1))
         dec, enc = self._decode(seq, pos, torch.cat(rows, dim=0), test_feat)
         return dec[:Ns], dec[Ns:], enc[:, :Ns], enc[:, Ns:]

@@ -7,7 +7,8 @@ its box encoding weighted by the same token); the decoder emits one filter
 per object in one forward.
 
 Shapes: features (Nf, Ns, C, H, W); labels (Nf, Ns, K, H, W); ltrb maps
-(Nf, Ns, K, H, W, 4); frame masks (Nf,) bool. Filters are (Ns, K, C). Token
+(Nf, Ns, K, H, W, 4); frame masks (Nf,) bool, or (Nf, Ns): one per sequence
+(the batched server's streams). Filters are (Ns, K, C). Token
 order is (frame, row, col), as in the JAX package.
 """
 
@@ -70,7 +71,7 @@ class GOTFilterPredictor(nn.Module):
         key_padding = None
         if train_frame_mask is not None:
             key_padding = _frame_key_padding(train_frame_mask, H * W,
-                                             Nf_te * h * w)[None].expand(Ns, -1)
+                                             Nf_te * h * w).expand(Ns, -1)
         return self._decode(seq, pos, key_padding, test_feat, generator)
 
     def predict_cls_bbreg_filters_parallel(self, train_feat, test_feat, train_label,
@@ -91,7 +92,6 @@ class GOTFilterPredictor(nn.Module):
         valid = train_frame_mask.bool()
         row_cls = _frame_key_padding(valid, H * W, Nf_te * h * w)
         row_bb = _frame_key_padding(valid & gth_frame_mask.bool(), H * W, Nf_te * h * w)
-        key_padding = torch.cat([row_cls[None].expand(Ns, -1),
-                                 row_bb[None].expand(Ns, -1)], dim=0)
+        key_padding = torch.cat([row_cls.expand(Ns, -1), row_bb.expand(Ns, -1)], dim=0)
         dec, enc = self._decode(seq, pos, key_padding, test_feat)
         return dec[:Ns], dec[Ns:], enc[:, :Ns], enc[:, Ns:]

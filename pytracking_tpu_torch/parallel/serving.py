@@ -1,11 +1,25 @@
-"""Batched multi-stream serving: B independent video streams of one
-DiMP-family tracker in one step per frame (counterpart of
-pytracking_tpu/parallel/serving.py `BatchedTrackerServer`).
+"""Batched multi-stream serving: B independent video streams of one tracker
+in one step per frame (counterpart of pytracking_tpu/parallel/serving.py
+`BatchedTrackerServer`).
 
-The step is the DiMP tracker's own (`DiMPTracker._step_streams`, written
-over a leading stream axis; a single tracker runs it with one stream), after
-one batched crop, so a frame of B streams launches about as many kernels as
-a frame of one. The classifier refit is split off, as in the JAX server:
+The step is the tracker class's own, written over a leading stream axis (a
+single tracker runs it with one stream), after one batched crop, so a frame
+of B streams launches about as many kernels as a frame of one. The server
+calls only the class's stream-axis interface (`trackers/base.py`):
+
+  * `_crop_streams(states, frames)`: the patches of B frames in one crop;
+  * `_step_streams(states, patches, extents, uniform)`: the step;
+  * `stack_states` / `stream_state`: B single-stream states to one batched
+    state and back;
+  * `_serve_refit`, `_serve_tick_due`, `_serve_reads_flags`: whether, and
+    how, a refit follows the step.
+
+The classes served: the DiMP family (DiMP, PrDiMP, SuperDiMP), KYS, ToMP
+and TaMOs. A class that changes the single tracker's step without giving
+the stream-axis step again (KeepTrack) is refused.
+
+The DiMP family's and KYS's classifier refit is split off, as in the JAX
+server:
 
   * per frame: the light step (`params.defer_classifier_update=True`):
     crop, backbone, scores, localisation, IoU-Net ascent, memory write; no
@@ -17,12 +31,12 @@ a frame of one. The classifier refit is split off, as in the JAX server:
 
 With no hard negatives this is the fused tracker's cadence exactly; a hard
 negative's refit waits for the next tick, the serving path's one semantic
-difference. A class without `supports_deferred_classifier_update` runs the
-fused refit per frame instead: the flags are read back each frame, each
-stream's iteration count is chosen on the host, and the optimiser runs once
-per non-zero count over the streams that need it. No class the server
-accepts today takes that path (DiMP's step always defers); it is the JAX
-server's fallback's counterpart, kept for parity with it.
+difference. A DiMP-family class without `supports_deferred_classifier_update`
+runs the fused refit per frame instead: the flags are read back each frame,
+each stream's iteration count is chosen on the host, and the optimiser runs
+once per non-zero count over the streams that need it (the JAX server's
+fallback's counterpart). ToMP and TaMOs have no refit: their memory write is
+in the step, and `scan_track` reads back once per call.
 
 Entry points run on the card unless `device="cpu"` is passed; without CUDA
 the server raises.
@@ -38,10 +52,30 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from pytracking_tpu_torch.ops.patch import sample_patch
-from pytracking_tpu_torch.trackers.dimp import DiMPTracker, stack_states
+from pytracking_tpu_torch.trackers.base import BaseTracker
 from pytracking_tpu_torch.utils.device import ieee_float32, resolve_device
 from pytracking_tpu_torch.utils.loading import round_to_bf16_
+
+
+def _defined_in(cls: type, name: str) -> type:
+    """The class of `cls`'s MRO whose body defines `name`."""
+    return next(c for c in cls.__mro__ if name in vars(c))
+
+
+def check_servable(tracker_cls) -> None:
+    """Raises NotImplementedError unless `tracker_cls` gives the stream-axis
+    interface, and gives its stream-axis step again wherever it changes the
+    single tracker's step."""
+    name = getattr(tracker_cls, "__name__", tracker_cls)
+    if not (isinstance(tracker_cls, type) and issubclass(tracker_cls, BaseTracker)
+            and tracker_cls._layout is not None and hasattr(tracker_cls, "_step_streams")
+            and hasattr(tracker_cls, "_crop_streams")):
+        raise NotImplementedError(f"{name}: no stream-axis step to serve")
+    step_owner = _defined_in(tracker_cls, "_track_from_patch")
+    if not issubclass(_defined_in(tracker_cls, "_step_streams"), step_owner):
+        raise NotImplementedError(
+            f"{name}: its step ({step_owner.__name__}._track_from_patch) has no stream-axis "
+            "counterpart to serve")
 
 
 class BatchedTrackerServer:
@@ -52,27 +86,24 @@ class BatchedTrackerServer:
         server.initialize(frames, bboxes)       # lists of length B
         boxes = server.track(frame_batch)       # (B, H, W, 3) -> (B, 4)
 
-    After each `track` the read-back flags and score peaks are in
-    `server.flags` and `server.max_scores`.
+    TaMOs returns (B, K, 4): a box per object slot of each stream. After
+    each `track` the read-back flags and score peaks are in `server.flags`
+    and `server.max_scores`.
     """
 
     def __init__(self, tracker_cls, params, net, device="cuda", bf16: Optional[bool] = None,
                  **tracker_kwargs):
-        """tracker_cls: `DiMPTracker` or a subclass that keeps its step (the
-        stream-axis step is DiMP's; KYS and KeepTrack change it).
+        """tracker_cls: a class with the stream-axis interface
+        (`check_servable`).
 
         bf16: round every float32 weight of a copy of `net` through bf16
         (`round_to_bf16_`, with the BatchNorms' bf16 multipliers), the
         counterpart of the JAX server storing its variables as bf16: the
-        layers compute in float32 from the rounded weights, and the
+        layers compute in their own dtype from the rounded weights, and the
         caller's net is left as it is. None reads
         PYTRACKING_TPU_SERVING_BF16 (default on, the serving default);
         pass False for agreement with the float32 single-stream trackers."""
-        if not (isinstance(tracker_cls, type) and issubclass(tracker_cls, DiMPTracker)
-                and tracker_cls._track_from_patch is DiMPTracker._track_from_patch):
-            raise NotImplementedError(
-                f"{getattr(tracker_cls, '__name__', tracker_cls)}: the batched step serves "
-                "the DiMP family's own step only")
+        check_servable(tracker_cls)
         device = resolve_device(device)
         if bf16 is None:
             bf16 = os.environ.get("PYTRACKING_TPU_SERVING_BF16", "1") == "1"
@@ -121,7 +152,7 @@ class BatchedTrackerServer:
             self.tracker.initialize(frame, {"init_bbox": list(bbox)})
             states.append(self.tracker.state)
         self.tracker.state = None
-        self.states = stack_states(states)
+        self.states = self.tracker.stack_states(states)
         self.num_streams = len(states)
 
     @property
@@ -139,27 +170,16 @@ class BatchedTrackerServer:
             frames = frames.pin_memory()
         return frames.to(self.device, non_blocking=True)
 
-    def _crop(self, frames: torch.Tensor):
-        """The search patches (B, 3, s, s) of frames (B, 3, H, W) around each
-        stream's target, in one batched crop, and their extents (B, 4)."""
-        tr, st = self.tracker, self.states
-        p = tr.params
-        feat_sz = float(tr._feature_sz)
-        centered_pos = st.pos + ((feat_sz + p.kernel_size) % 2) * \
-            st.target_scale[:, None] * tr._img_sample_sz / (2 * feat_sz)
-        s = p.image_sample_size
-        return sample_patch(frames, centered_pos, st.target_scale[:, None] * tr._img_sample_sz,
-                            (s, s), mode=p.border_mode, max_scale_change=p.patch_max_scale_change,
-                            im_sz=st.image_sz)
-
     def _step(self, frames: torch.Tensor) -> dict:
         """One step of (B, H, W, 3) frames on the device."""
-        patch, coords = self._crop(frames.permute(0, 3, 1, 2).float())
+        patch, coords = self.tracker._crop_streams(self.states,
+                                                   frames.permute(0, 3, 1, 2).float())
         self.states, out = self.tracker._step_streams(self.states, patch, coords, self._uniform)
         return out
 
     def _read(self, out: dict) -> np.ndarray:
-        """Boxes, score peaks and flags in one copy: the host sync."""
+        """Boxes, score peaks and flags in one copy: the host sync. Over
+        the stream axis (and any object axis)."""
         host = torch.cat([out["target_bbox"], out["max_score"][..., None],
                           out["flag"][..., None].float()], -1).cpu().numpy()
         self.max_scores = host[..., 4]
@@ -169,9 +189,10 @@ class BatchedTrackerServer:
     @torch.no_grad()
     @ieee_float32()
     def track(self, frame_batch) -> np.ndarray:
-        """frame_batch (B, H, W, 3) -> boxes (B, 4) [x, y, w, h]. Reads back
-        once; the refit (the deferred tick, or the fused per-frame refit)
-        is enqueued after the readback, ahead of the next step."""
+        """frame_batch (B, H, W, 3) -> boxes (B, 4) [x, y, w, h] ((B, K, 4)
+        for TaMOs). Reads back once; a refit (the deferred tick, or the
+        fused per-frame refit) is enqueued after the readback, ahead of the
+        next step."""
         return self._track(self._frames(frame_batch))
 
     def _track(self, frames: torch.Tensor) -> np.ndarray:
@@ -183,17 +204,17 @@ class BatchedTrackerServer:
     @ieee_float32()
     def scan_track(self, frame_batches) -> np.ndarray:
         """frame_batches (T, B, H, W, 3), a device tensor (or a host array,
-        uploaded once) -> boxes (T, B, 4). The same steps and ticks as T
-        calls of `track`; in deferred mode nothing is read back until the
-        end, so the sequence costs one host synchronisation. A
-        non-deferring class reads back every frame: its refit is chosen
-        from the flags."""
+        uploaded once) -> boxes (T, B, 4) ((T, B, K, 4) for TaMOs). The
+        same steps and refits as T calls of `track`; unless a refit is
+        chosen from the flags, nothing is read back until the end, so the
+        sequence costs one host synchronisation. A non-deferring DiMP class
+        reads back every frame."""
         frames = torch.as_tensor(frame_batches)
         if frames.device.type != self.device.type:
             if self.device.type == "cuda":
                 frames = frames.pin_memory()
             frames = frames.to(self.device, non_blocking=True)
-        if not self._deferred:
+        if self.tracker._serve_reads_flags:
             return np.stack([self._track(f) for f in frames])
         outs = []
         for f in frames:
@@ -204,43 +225,8 @@ class BatchedTrackerServer:
     # ---------------------------------------------------------------- refits
 
     def _refit(self) -> None:
-        """After a step: the deferred tick where it falls due, or the fused
-        refit chosen from the flags just read back."""
-        if not self._deferred:
-            self._update_fused(self.flags)
-        elif self._needs_update_tick():
-            self._update_deferred()
-
-    def _refit_filters(self, num_iter: int, streams=None, mask_by_flag=False) -> None:
-        self.states = dataclasses.replace(self.states, target_filter=self.tracker._refit_streams(
-            self.states, num_iter, streams, mask_by_flag))
-
-    def _update_deferred(self) -> None:
-        self._refit_filters(self.params.net_opt_update_iter, mask_by_flag=True)
-
-    def _update_fused(self, flags) -> None:
-        """The fused per-frame refit: each stream's count chosen on the host
-        from its flag; one optimiser call per non-zero count over its
-        streams, the others' filters untouched."""
-        if not self.params.update_classifier:
-            return
-        groups = {}
-        for b, flag in enumerate(flags):
-            num_iter = self.tracker._classifier_iterations(int(flag), self._frame_num)
-            if num_iter:
-                groups.setdefault(num_iter, []).append(b)
-        for num_iter, streams in groups.items():
-            index = None
-            if len(streams) < len(flags):
-                index = torch.tensor(streams)
-                if self.device.type == "cuda":
-                    index = index.pin_memory()
-                index = index.to(self.device, non_blocking=True)
-            self._refit_filters(num_iter, index)
-
-    def _needs_update_tick(self) -> bool:
-        """The fused step's periodic branch fires where (frame_num - 1) %
-        train_skipping == 0; frame_num counts the step just run."""
-        if not self._deferred:
-            return False
-        return (self._frame_num - 1) % self.params.train_skipping == 0
+        """After a step: the class's refit (the deferred tick where it falls
+        due, the fused refit chosen from the flags just read back, or
+        none)."""
+        self.states = self.tracker._serve_refit(
+            self.states, self.flags if self.tracker._serve_reads_flags else None)

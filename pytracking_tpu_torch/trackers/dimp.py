@@ -22,9 +22,12 @@ the last flag).
 The step is written over a leading stream axis (`_step_streams` on a
 `BatchedDiMPState`): the batched server (`parallel/serving.py`) runs B
 streams through it, and a single tracker is its one-stream case, its state
-viewed as a batch of one. KYS and KeepTrack keep steps of their own and
-call the one-stream wrappers `_localize`, `_refine_target_box` and
-`_update_memory_masked`; ATOM calls `refine_target_box`.
+viewed as a batch of one. So does the crop (`_crop_streams`), and the
+served refit (`_serve_refit`: the deferred tick, or the fused refit chosen
+from the flags). KYS writes its own stream-axis step on the stream-axis
+helpers; KeepTrack keeps a single-stream step and calls the one-stream
+wrappers `_localize`, `_refine_target_box` and `_update_memory_masked`;
+ATOM calls `refine_target_box`.
 
 The IoU-Net box gradient is `torch.autograd.grad` of the summed IoU in the
 proposal boxes, inside `torch.no_grad()` with grad enabled for that call;
@@ -42,7 +45,7 @@ import dataclasses
 import math
 import types
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -52,7 +55,8 @@ from pytracking_tpu_torch.ops import augmentation as aug
 from pytracking_tpu_torch.ops import dcf
 from pytracking_tpu_torch.ops.bbox import rect_to_rel, rel_to_rect
 from pytracking_tpu_torch.ops.patch import sample_patch
-from pytracking_tpu_torch.trackers.base import BaseTracker
+from pytracking_tpu_torch.trackers.base import (BaseTracker, StreamLayout, masked_stream_slots_set,
+                                                one_stream_step)
 from pytracking_tpu_torch.utils.device import ieee_float32
 
 FLAG_NORMAL, FLAG_NOT_FOUND, FLAG_HARD_NEG, FLAG_UNCERTAIN = 0, 1, 2, 3
@@ -181,52 +185,17 @@ class BatchedDiMPState:
     max_score: torch.Tensor        # (B,)
 
 
-# DiMPState's tensor fields by layout: the memory (stream axis second), the
-# ones with a leading axis of 1 already (the stream axis), the rest
+# DiMPState's fields by layout: the memory (stream axis second) and the ones
+# with a leading axis of 1 already (the stream axis)
 _MEMORY = ("mem_samples", "mem_boxes", "mem_weights")
 _LEADING_ONE = ("target_filter", "iou_mod3", "iou_mod4")
-_TENSORS = tuple(f.name for f in dataclasses.fields(DiMPState) if f.name != "frame_num")
+_LAYOUT = StreamLayout(DiMPState, BatchedDiMPState, _MEMORY, _LEADING_ONE)
 # the fields box refinement replaces, those it reads besides, the memory's
 # counts, and what a refit reads
 _REFINED = ("pos", "target_sz", "target_scale")
 _SCALE_BOUNDS = ("base_target_sz", "min_scale", "max_scale")
 _COUNTS = ("num_stored", "num_init", "prev_ind")
 _REFIT = ("target_filter", "flag") + _MEMORY
-
-
-def _by_layout(name, memory, leading_one, other):
-    return memory if name in _MEMORY else leading_one if name in _LEADING_ONE else other
-
-
-def stack_states(states: Sequence[DiMPState]) -> BatchedDiMPState:
-    """B single-stream states (at one frame count) -> one batched state."""
-    frame_nums = {s.frame_num for s in states}
-    if len(frame_nums) != 1:
-        raise ValueError(f"streams at different frame counts {sorted(frame_nums)}")
-    return BatchedDiMPState(frame_num=states[0].frame_num, **{
-        n: _by_layout(n, lambda xs: torch.stack(xs, 1), torch.cat, torch.stack)(
-            [getattr(s, n) for s in states]) for n in _TENSORS})
-
-
-def stream_state(state: BatchedDiMPState, b: int) -> DiMPState:
-    """Stream b's state as a single-stream `DiMPState`, every tensor a copy
-    (the single tracker writes its memory in place)."""
-    return DiMPState(frame_num=state.frame_num, **{
-        n: _by_layout(n, lambda x: x[:, b], lambda x: x[b:b + 1], lambda x: x[b])(
-            getattr(state, n)).clone() for n in _TENSORS})
-
-
-def _one_stream(state, names) -> dict:
-    """The named fields of a single-stream state as one stream of a batch,
-    every tensor a view (the step's in-place memory writes reach it)."""
-    return {n: _by_layout(n, lambda x: x[:, None], lambda x: x, lambda x: x[None])(
-        getattr(state, n)) for n in names}
-
-
-def _unbatch(fields: dict) -> dict:
-    """`_one_stream`'s inverse on stream-axis tensors of one stream."""
-    return {n: _by_layout(n, lambda x: x[:, 0], lambda x: x, lambda x: x[0])(x)
-            for n, x in fields.items()}
 
 
 def _get_iounet_box(pos, sz, sample_pos, sample_scale, img_sample_sz) -> torch.Tensor:
@@ -339,6 +308,7 @@ class DiMPTracker(BaseTracker):
 
     # the step honours params.defer_classifier_update
     supports_deferred_classifier_update = True
+    _layout = _LAYOUT
 
     def __init__(self, params: DiMPParams, net, device="cuda"):
         super().__init__(params, device)
@@ -414,7 +384,7 @@ class DiMPTracker(BaseTracker):
         kept on the device only where the last flag allows an update. The
         caller runs it on the train_skipping cadence."""
         self.state = dataclasses.replace(self.state, target_filter=self._refit_streams(
-            types.SimpleNamespace(**_one_stream(self.state, _REFIT)),
+            types.SimpleNamespace(**_LAYOUT.one_stream(self.state, _REFIT)),
             self.params.net_opt_update_iter, mask_by_flag=True))
 
     # ---------------------------------------------------------------- initialize
@@ -511,12 +481,20 @@ class DiMPTracker(BaseTracker):
 
     def _track_from_patch(self, state: DiMPState, patch, coords):
         """The step of one stream: `_step_streams` on a batch of one."""
-        streams = BatchedDiMPState(frame_num=state.frame_num, **_one_stream(state, _TENSORS))
-        streams, out = self._step_streams(streams, patch[None], coords[None],
-                                          lambda shape: self._uniform(shape)[None])
-        return (dataclasses.replace(state, frame_num=streams.frame_num,
-                                    **_unbatch({n: getattr(streams, n) for n in _TENSORS})),
-                {k: v[0] for k, v in out.items()})
+        return one_stream_step(self._layout, self._step_streams, state, patch, coords,
+                               lambda shape: self._uniform(shape)[None])
+
+    def _crop_streams(self, state: BatchedDiMPState, frames):
+        """`_track_crop` of B streams in one batched crop: the search patches
+        (B, 3, s, s) of frames (B, 3, H, W) and their extents (B, 4)."""
+        p = self.params
+        feat_sz = float(self._feature_sz)
+        centered_pos = state.pos + ((feat_sz + p.kernel_size) % 2) * \
+            state.target_scale[:, None] * self._img_sample_sz / (2 * feat_sz)
+        s = p.image_sample_size
+        return sample_patch(frames, centered_pos, state.target_scale[:, None] * self._img_sample_sz,
+                            (s, s), mode=p.border_mode, max_scale_change=p.patch_max_scale_change,
+                            im_sz=state.image_sz)
 
     def _step_streams(self, state: BatchedDiMPState, patch, coords, uniform):
         """One frame of B streams from their search patches (B, 3, s, s) and
@@ -661,7 +639,7 @@ class DiMPTracker(BaseTracker):
     def _refine_target_box(self, state: DiMPState, backbone_feat, sample_pos, sample_scale,
                            found, update_scale=True) -> DiMPState:
         """`_refine_streams` for one stream (KYS and KeepTrack call it)."""
-        one = types.SimpleNamespace(**_one_stream(state, _REFINED + _SCALE_BOUNDS
+        one = types.SimpleNamespace(**_LAYOUT.one_stream(state, _REFINED + _SCALE_BOUNDS
                                                   + ("iou_mod3", "iou_mod4")))
         refined = self._refine_streams(one, backbone_feat, sample_pos[None], _one(sample_scale),
                                        _one(found), _one(update_scale),
@@ -687,11 +665,11 @@ class DiMPTracker(BaseTracker):
                               do_update, replace_key=None) -> DiMPState:
         """`_update_memory_streams` for one stream (KYS and KeepTrack call
         it): sample (C, Hf, Wf), target_box (4,), replace_key (M,)."""
-        one = types.SimpleNamespace(**_one_stream(state, _MEMORY + _COUNTS))
+        one = types.SimpleNamespace(**_LAYOUT.one_stream(state, _MEMORY + _COUNTS))
         new = self._update_memory_streams(one, sample[None], target_box[None], lr,
                                           _one(do_update),
                                           None if replace_key is None else replace_key[:, None])
-        return dataclasses.replace(state, **_unbatch(new))
+        return dataclasses.replace(state, **_LAYOUT.unbatch(new))
 
     def _update_memory_streams(self, state, sample, target_box, lr, do_update,
                                replace_key=None) -> dict:
@@ -707,7 +685,6 @@ class DiMPTracker(BaseTracker):
         num_init = state.num_init
         num_stored = state.num_stored
         init_w = p.init_samples_minimum_weight
-        B = sw.shape[1]
 
         idx = torch.arange(M, device=sw.device)[:, None]
         s_ind = num_init if init_w > 0 else 0
@@ -729,10 +706,8 @@ class DiMPTracker(BaseTracker):
                                  sw_new * (1.0 / (init_w + rest_sum)))
             sw_new = torch.where(init_sum < init_w, sw_adj, sw_new)
 
-        streams = torch.arange(B, device=sw.device)
-        for buf, value in ((state.mem_samples, sample), (state.mem_boxes, target_box)):
-            keep = do_update.reshape((B,) + (1,) * (value.dim() - 1))
-            buf.index_put_((r_ind, streams), torch.where(keep, value, buf[r_ind, streams]))
+        masked_stream_slots_set(((state.mem_samples, sample), (state.mem_boxes, target_box)),
+                                r_ind, do_update)
         return {"mem_weights": torch.where(do_update, sw_new, state.mem_weights),
                 "num_stored": torch.where(do_update, torch.clamp(num_stored + 1, max=M),
                                           num_stored),
@@ -762,7 +737,55 @@ class DiMPTracker(BaseTracker):
         if num_iter == 0:
             return
         self.state = dataclasses.replace(self.state, target_filter=self._refit_streams(
-            types.SimpleNamespace(**_one_stream(self.state, _REFIT)), num_iter))
+            types.SimpleNamespace(**_LAYOUT.one_stream(self.state, _REFIT)), num_iter))
+
+    # ---------------------------------------------------------------- served refits
+
+    @property
+    def _serve_reads_flags(self) -> bool:
+        """Without the deferred update the refit after a step follows its
+        flags, read back on the host."""
+        return not self.params.defer_classifier_update
+
+    def _serve_tick_due(self, frame_num: int) -> bool:
+        """The deferred update's tick: where the fused step's periodic
+        branch fires, (frame_num - 1) % train_skipping == 0."""
+        p = self.params
+        return p.defer_classifier_update and (frame_num - 1) % p.train_skipping == 0
+
+    def _serve_refit(self, state: BatchedDiMPState, flags: Optional[np.ndarray] = None):
+        """After a served step: with the deferred update, the tick where it
+        falls due (one optimiser pass over every stream, each masked on the
+        device by its last flag); else the fused refit, each stream's count
+        chosen from its flag, one optimiser call per non-zero count over
+        its streams, the others' filters untouched."""
+        p = self.params
+        if p.defer_classifier_update:
+            return self._serve_tick(state) if self._serve_tick_due(state.frame_num) else state
+        if not p.update_classifier:
+            return state
+        groups = {}
+        for b, flag in enumerate(flags):
+            num_iter = self._classifier_iterations(int(flag), state.frame_num)
+            if num_iter:
+                groups.setdefault(num_iter, []).append(b)
+        for num_iter, streams in groups.items():
+            index = None
+            if len(streams) < len(flags):
+                index = torch.tensor(streams)
+                if self.device.type == "cuda":
+                    index = index.pin_memory()
+                index = index.to(self.device, non_blocking=True)
+            state = dataclasses.replace(state, target_filter=self._refit_streams(
+                state, num_iter, index))
+        return state
+
+    def _serve_tick(self, state: BatchedDiMPState) -> BatchedDiMPState:
+        """The deferred update's tick: the periodic iteration count over
+        every stream, each stream's filter kept where its last flag allows
+        no update."""
+        return dataclasses.replace(state, target_filter=self._refit_streams(
+            state, self.params.net_opt_update_iter, mask_by_flag=True))
 
     def _refit_streams(self, state, num_iter: int, streams: Optional[torch.Tensor] = None,
                        mask_by_flag: bool = False) -> torch.Tensor:

@@ -24,7 +24,8 @@ import torch
 
 from pytracking_tpu_torch.ops import dcf
 from pytracking_tpu_torch.ops.patch import sample_patch
-from pytracking_tpu_torch.trackers.base import BaseTracker, masked_slot_set, take
+from pytracking_tpu_torch.trackers.base import (BaseTracker, StreamLayout, masked_stream_slots_set,
+                                                one_stream_step)
 from pytracking_tpu_torch.utils.device import ieee_float32
 
 FLAG_NORMAL, FLAG_NOT_FOUND, FLAG_HARD_NEG, FLAG_UNCERTAIN = 0, 1, 2, 3
@@ -72,13 +73,44 @@ class TaMOsState:
     mem_weights: torch.Tensor    # (M,)
     num_stored: torch.Tensor     # () int32
     prev_ind: torch.Tensor       # () int32
-    frame_num: torch.Tensor      # () int32
+    frame_num: int               # host count: 1 after initialize
     flag: torch.Tensor           # (K,) int32
     max_score: torch.Tensor      # (K,)
 
 
+@dataclass
+class BatchedTaMOsState:
+    """`TaMOsState` of B streams, each with its K object slots: every
+    per-stream field with a leading stream axis, the memory with the stream
+    axis second, (M, B, ...)."""
+    pos: torch.Tensor            # (B, K, 2)
+    pos_prev: torch.Tensor       # (B, K, 2)
+    target_sz: torch.Tensor      # (B, K, 2)
+    obj_valid: torch.Tensor      # (B, K) bool
+    image_sz: torch.Tensor       # (B, 2)
+    sigma: torch.Tensor          # (B, K, 2)
+    mem_samples: torch.Tensor    # (M, B, C, h, w)
+    mem_labels: torch.Tensor     # (M, B, K, h, w)
+    mem_boxes: torch.Tensor      # (M, B, K, 4)
+    mem_weights: torch.Tensor    # (M, B)
+    num_stored: torch.Tensor     # (B,) int32
+    prev_ind: torch.Tensor       # (B,) int32
+    frame_num: int               # host count, shared by the streams
+    flag: torch.Tensor           # (B, K) int32
+    max_score: torch.Tensor      # (B, K)
+
+
+_LAYOUT = StreamLayout(TaMOsState, BatchedTaMOsState,
+                       memory=("mem_samples", "mem_labels", "mem_boxes", "mem_weights"))
+
+
 class TaMOsTracker(BaseTracker):
+    """One instance tracks the K object slots of one sequence; the step is
+    written over a leading stream axis (`_step_streams`), which the batched
+    server runs for B streams (the streams' encoder passes one batch of the
+    fused attention) and the single tracker for one."""
     multiobj_mode = "default"        # natively multi-object
+    _layout = _LAYOUT
 
     def __init__(self, params: TaMOsParams, net, device="cuda"):
         super().__init__(params, device)
@@ -151,25 +183,30 @@ class TaMOsTracker(BaseTracker):
 
     def _whole_frame_sample(self, im: torch.Tensor, image_sz: torch.Tensor):
         """Resize the whole frame with one scale factor (aspect preserved) and
-        replicate-pad to the sample size. Returns (frame (3, Hs, Ws), scale)."""
+        replicate-pad to the sample size: im (3, H, W) and image_sz (2,), or
+        B frames of one size (B, 3, H, W) and (B, 2) in one resize. Returns
+        (frames (..., 3, Hs, Ws), scales (...))."""
         Hs, Ws = self.params.image_sample_size
-        H_im, W_im = image_sz[0], image_sz[1]
+        H_im, W_im = image_sz[..., 0], image_sz[..., 1]
         s = torch.where(H_im / W_im <= float(Hs) / Ws, Ws / W_im, Hs / H_im)
-        extent = self._sample_hw / s
+        extent = self._sample_hw / s[..., None]
         pos = extent / 2.0 - 0.5
         frame, _ = sample_patch(im, pos, extent, (Hs, Ws))
         return frame, s
 
     def _labels(self, pos, sfac, sigma, valid) -> torch.Tensor:
-        """Per-object Gaussian labels (K, h, w) at `pos`, zero for empty slots."""
+        """Per-object Gaussian labels (..., K, h, w) at `pos` (..., K, 2),
+        sfac (...), zero for empty slots."""
         p = self.params
-        centers = (pos * sfac) / p.feature_stride - self._label_offset
-        labels = dcf.gauss_2d(p.train_feature_size, sigma, centers)
-        return torch.where(valid[:, None, None], labels, 0.0)
+        centers = (pos * sfac[..., None, None]) / p.feature_stride - self._label_offset
+        labels = dcf.gauss_2d(p.train_feature_size, sigma.reshape(-1, 2), centers.reshape(-1, 2))
+        labels = labels.reshape(centers.shape[:-1] + labels.shape[-2:])
+        return torch.where(valid[..., None, None], labels, 0.0)
 
     def _encode_ltrb(self, boxes: torch.Tensor) -> torch.Tensor:
-        """(M, K, 4) [x, y, w, h] sample-coord boxes -> per-cell LTRB maps
-        (M, K, h, w, 4) normalised by the sample size; zero for empty boxes."""
+        """(..., K, 4) [x, y, w, h] sample-coord boxes -> per-cell LTRB maps
+        (..., K, h, w, 4) normalised by the sample size; zero for empty
+        boxes."""
         p = self.params
         Hs, Ws = p.image_sample_size
         h, w = p.train_feature_size
@@ -178,11 +215,11 @@ class TaMOsTracker(BaseTracker):
         ys = torch.arange(h, dtype=torch.float32, device=self.device) * stride + stride // 2
         x1, y1 = boxes[..., 0], boxes[..., 1]
         x2, y2 = boxes[..., 0] + boxes[..., 2], boxes[..., 1] + boxes[..., 3]
-        shape = boxes.shape[:2] + (h, w)
-        l = ((xs[None, None, None, :] - x1[..., None, None]) / Ws).expand(shape)
-        t = ((ys[None, None, :, None] - y1[..., None, None]) / Hs).expand(shape)
-        r = ((x2[..., None, None] - xs[None, None, None, :]) / Ws).expand(shape)
-        b = ((y2[..., None, None] - ys[None, None, :, None]) / Hs).expand(shape)
+        shape = boxes.shape[:-1] + (h, w)
+        l = ((xs[None, :] - x1[..., None, None]) / Ws).expand(shape)
+        t = ((ys[:, None] - y1[..., None, None]) / Hs).expand(shape)
+        r = ((x2[..., None, None] - xs[None, :]) / Ws).expand(shape)
+        b = ((y2[..., None, None] - ys[:, None]) / Hs).expand(shape)
         ltrb = torch.stack([l, t, r, b], dim=-1)
         valid = (boxes[..., 2] > 0) & (boxes[..., 3] > 0)
         return torch.where(valid[..., None, None, None], ltrb, 0.0)
@@ -218,87 +255,109 @@ class TaMOsTracker(BaseTracker):
                           obj_valid=valid, image_sz=image_sz, sigma=sigma,
                           mem_samples=mem_samples, mem_labels=mem_labels,
                           mem_boxes=mem_boxes, mem_weights=mem_weights,
-                          num_stored=i32(1), prev_ind=i32(-1), frame_num=i32(1),
+                          num_stored=i32(1), prev_ind=i32(-1), frame_num=1,
                           flag=torch.zeros((K,), dtype=torch.int32, device=self.device),
                           max_score=torch.ones((K,), device=self.device))
 
     def _track_from_patch(self, state: TaMOsState, frame, sfac):
+        """The step of one stream: `_step_streams` on a batch of one."""
+        return one_stream_step(self._layout, self._step_streams, state, frame, sfac)
+
+    def _crop_streams(self, state: BatchedTaMOsState, frames):
+        """The whole-frame samples (B, 3, Hs, Ws) of B frames (B, 3, H, W) of
+        one size, in one resize, and their scales (B,)."""
+        return self._whole_frame_sample(frames, state.image_sz)
+
+    def _step_streams(self, state: BatchedTaMOsState, frame, sfac, uniform=None):
+        """One frame of B streams from their whole-frame samples (B, 3, Hs,
+        Ws) and scales (B,): (the new state, {'target_bbox' (B, K, 4),
+        'max_score' (B, K), 'flag' (B, K)}), all on the device; the memory
+        is written in place. The B streams are the filter predictor's
+        sequence axis, so the encoder's self-attention runs once per layer
+        over all of them (batch 2B: the classification and box-regression
+        copies). TaMOs draws nothing (`uniform` is unused)."""
         p = self.params
-        Hs, Ws = p.image_sample_size
+        Hs = p.image_sample_size[0]
         K = p.num_tokens
         M = p.sample_memory_size
+        B = frame.shape[0]
         net = self.net
         state = dataclasses.replace(state, frame_num=state.frame_num + 1)
 
-        backbone_feat = net.extract_backbone(frame[None])
-        test_feat = net.extract_head_feat(backbone_feat)[None]          # (1, 1, C, h, w)
-        slots = torch.arange(M, device=self.device)
-        frame_mask = slots < state.num_stored
-        gth_mask = slots == 0
-        train_ltrb = self._encode_ltrb(state.mem_boxes)[:, None]        # (M, 1, K, h, w, 4)
+        backbone_feat = net.extract_backbone(frame)
+        test_feat = net.extract_head_feat(backbone_feat)[None]          # (1, B, C, h, w)
+        slots = torch.arange(M, device=self.device)[:, None]
+        frame_mask = slots < state.num_stored                           # (M, B)
+        gth_mask = (slots == 0).expand(M, B)
+        train_ltrb = self._encode_ltrb(state.mem_boxes)                 # (M, B, K, h, w, 4)
         cls_w, bb_w, cls_enc, bb_enc = net.predict_filters_parallel(
-            state.mem_samples[:, None], test_feat, state.mem_labels[:, None], train_ltrb,
-            frame_mask, gth_mask)
+            state.mem_samples, test_feat, state.mem_labels, train_ltrb, frame_mask, gth_mask)
         feat2 = net.run_fpn(bb_enc, backbone_feat)["feat2"]
         h2, w2 = feat2.shape[-2], feat2.shape[-1]
-        scores = net.classify_trafo(cls_enc, cls_w, (h2, w2))[0, 0]     # (K, h2, w2)
-        ltrb = net.bbreg(feat2, bb_w)[0, 0]                             # (K, 4, h2, w2)
+        scores = net.classify_trafo(cls_enc, cls_w, (h2, w2))[0]        # (B, K, h2, w2)
+        ltrb = net.bbreg(feat2, bb_w)[0]                                # (B, K, 4, h2, w2)
         if p.normalize_scores:
             scores = torch.sigmoid(scores)
 
         stride2 = Hs // h2
-        cell_px = stride2 / sfac
-        flags, loc, max_scores = self._localize(scores, state.pos, state.pos_prev,
-                                                state.target_sz, cell_px)
-        kk = torch.arange(K, device=self.device)
-        lv = ltrb[kk, :, loc[:, 0], loc[:, 1]] * self._ltrb_scale
-        xc = loc[:, 1].float() * stride2 + stride2 / 2
-        yc = loc[:, 0].float() * stride2 + stride2 / 2
-        H_im, W_im = state.image_sz[0], state.image_sz[1]
-        x1 = torch.clamp((xc - lv[:, 0]) / sfac, min=0.0)
+        cell_px = stride2 / sfac                                        # (B,)
+        flags, loc, max_scores = self._localize_streams(scores, state.pos, state.pos_prev,
+                                                        state.target_sz, cell_px)
+        cell = (loc[..., 0] * w2 + loc[..., 1])[..., None, None].expand(B, K, 4, 1)
+        lv = ltrb.flatten(3).gather(3, cell)[..., 0] * self._ltrb_scale   # (B, K, 4)
+        xc = loc[..., 1].float() * stride2 + stride2 / 2
+        yc = loc[..., 0].float() * stride2 + stride2 / 2
+        sf = sfac[:, None]
+        H_im, W_im = state.image_sz[:, 0, None], state.image_sz[:, 1, None]
+        x1 = torch.clamp((xc - lv[..., 0]) / sf, min=0.0)
         x1 = torch.minimum(x1, W_im - 10.0)
-        y1 = torch.minimum(torch.clamp((yc - lv[:, 1]) / sfac, min=0.0), H_im - 10.0)
-        x2 = torch.minimum(torch.maximum((xc + lv[:, 2]) / sfac, x1 + 10.0), W_im)
-        y2 = torch.minimum(torch.maximum((yc + lv[:, 3]) / sfac, y1 + 10.0), H_im)
+        y1 = torch.minimum(torch.clamp((yc - lv[..., 1]) / sf, min=0.0), H_im - 10.0)
+        x2 = torch.minimum(torch.maximum((xc + lv[..., 2]) / sf, x1 + 10.0), W_im)
+        y2 = torch.minimum(torch.maximum((yc + lv[..., 3]) / sf, y1 + 10.0), H_im)
         found = flags != FLAG_NOT_FOUND
-        new_pos = torch.where(found[:, None],
+        new_pos = torch.where(found[..., None],
                               torch.stack([(y1 + y2) / 2, (x1 + x2) / 2], dim=-1), state.pos)
-        new_sz = torch.where(found[:, None], torch.stack([y2 - y1, x2 - x1], dim=-1),
+        new_sz = torch.where(found[..., None], torch.stack([y2 - y1, x2 - x1], dim=-1),
                              state.target_sz)
 
         valid = state.obj_valid
         moved = valid & found
         state = dataclasses.replace(
             state,
-            pos_prev=torch.where(moved[:, None], state.pos, state.pos_prev),
-            pos=torch.where(valid[:, None], new_pos, state.pos),
-            target_sz=torch.where(valid[:, None], new_sz, state.target_sz),
+            pos_prev=torch.where(moved[..., None], state.pos, state.pos_prev),
+            pos=torch.where(valid[..., None], new_pos, state.pos),
+            target_sz=torch.where(valid[..., None], new_sz, state.target_sz),
             flag=flags, max_score=max_scores)
 
-        # memory update only when every valid object is confidently found;
-        # the learning rate follows the last valid object's flag
+        # memory update per stream only when every valid object is
+        # confidently found; the learning rate follows the last valid
+        # object's flag
         per_obj_ok = (~valid) | ((flags != FLAG_NOT_FOUND) & (flags != FLAG_UNCERTAIN)
                                  & (max_scores > p.conf_ths))
-        do_update = per_obj_ok.all() & p.update_classifier
-        last_obj = (K - 1) - torch.argmax(valid.flip(0).to(torch.int32))
-        lr = torch.where(take(flags, last_obj) == FLAG_HARD_NEG,
+        do_update = per_obj_ok.all(-1) & p.update_classifier               # (B,)
+        last_obj = (K - 1) - torch.argmax(valid.flip(-1).to(torch.int32), dim=-1)
+        lr = torch.where(flags.gather(1, last_obj[:, None])[:, 0] == FLAG_HARD_NEG,
                          p.hard_negative_learning_rate, p.learning_rate)
         labels = self._labels(state.pos, sfac, state.sigma, valid)
         cur_boxes = torch.cat([state.pos.flip(-1) - (state.target_sz.flip(-1) - 1) / 2,
                                state.target_sz.flip(-1)], dim=-1)
-        sample_boxes = torch.where(valid[:, None], cur_boxes * sfac, 0.0)
-        state = self._update_memory(state, test_feat[0, 0], labels, sample_boxes, lr,
-                                    do_update)
+        sample_boxes = torch.where(valid[..., None], cur_boxes * sfac[:, None, None], 0.0)
+        state = self._update_memory_streams(state, test_feat[0], labels, sample_boxes, lr,
+                                            do_update)
 
         return state, {"target_bbox": cur_boxes, "max_score": max_scores, "flag": flags}
 
-    def _localize(self, score, pos, pos_prev, sz, cell_px):
-        """Advanced localisation of the K objects at once (ATOM-style):
-        neighbourhood-masked second peak, displacement analysis, the four
-        flags. score (K, h2, w2). Returns (flags (K,) int32, loc (K, 2),
-        max score (K,))."""
+    def _localize_streams(self, score, pos, pos_prev, sz, cell_px):
+        """Advanced localisation (ATOM-style) of every object of every
+        stream at once: neighbourhood-masked second peak, displacement
+        analysis, the four flags. score (B, K, h2, w2), pos / pos_prev / sz
+        (B, K, 2), cell_px (B,) image pixels per score cell. Returns (flags
+        (B, K) int32, loc (B, K, 2), max score (B, K))."""
         p = self.params
-        h2, w2 = score.shape[-2], score.shape[-1]
+        B, K, h2, w2 = score.shape
+        score = score.reshape(B * K, h2, w2)
+        pos, pos_prev, sz = (x.reshape(B * K, 2) for x in (pos, pos_prev, sz))
+        cell_px = cell_px[:, None].expand(B, K).reshape(B * K, 1)
         score_center = pos / cell_px
 
         max1, disp1 = dcf.max2d(score)
@@ -347,35 +406,39 @@ class TaMOsTracker(BaseTracker):
         not_found = max1 < p.target_not_found_threshold
         flag = torch.where(not_found, FLAG_NOT_FOUND, flag)
         loc = torch.where(not_found[:, None], disp1, loc)
-        return flag, loc, max1
+        return flag.reshape(B, K), loc.reshape(B, K, 2), max1.reshape(B, K)
 
-    def _update_memory(self, state: TaMOsState, sample, labels, boxes, lr,
-                       do_update) -> TaMOsState:
+    def _update_memory_streams(self, state: BatchedTaMOsState, sample, labels, boxes, lr,
+                               do_update) -> BatchedTaMOsState:
+        """Weighted-replacement update of each stream's M slots (slot 0, the
+        initial frame, is never replaced), masked by `do_update` (B,): the
+        new sample (B, C, h, w), labels (B, K, h, w) and boxes (B, K, 4)
+        written by one indexed write per buffer, in place."""
         p = self.params
         M = p.sample_memory_size
-        sw = state.mem_weights
+        sw = state.mem_weights                                              # (M, B)
         num_stored = state.num_stored
         init_w = p.init_samples_minimum_weight
 
-        idx = torch.arange(M, device=self.device)
-        r_ind_full = torch.argmin(torch.where(idx >= 1, sw, math.inf))  # slot 0 = init
-        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)
+        idx = torch.arange(M, device=self.device)[:, None]
+        r_ind_full = torch.argmin(torch.where(idx >= 1, sw, math.inf), dim=0)
+        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)    # (B,)
 
         prev = state.prev_ind
         sw_new = torch.where(prev < 0, sw / (1 - lr), sw)
-        new_w = torch.where(prev < 0, lr, take(sw, torch.clamp(prev, min=0)) / (1 - lr))
+        prev_w = sw.gather(0, torch.clamp(prev, min=0).long()[None])[0]
+        new_w = torch.where(prev < 0, lr, prev_w / (1 - lr))
         sw_new = torch.where(idx == r_ind, new_w, sw_new)
-        sw_new = sw_new / sw_new.sum()
+        sw_new = sw_new / sw_new.sum(0)
         if init_w and init_w > 0:
             init_mask = idx < 1
-            init_sum = torch.where(init_mask, sw_new, 0.0).sum()
-            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum()
+            init_sum = torch.where(init_mask, sw_new, 0.0).sum(0)
+            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum(0)
             sw_adj = torch.where(init_mask, init_w, sw_new / (init_w + rest_sum))
             sw_new = torch.where(init_sum < init_w, sw_adj, sw_new)
 
-        masked_slot_set(state.mem_samples, r_ind, sample, do_update)
-        masked_slot_set(state.mem_labels, r_ind, labels, do_update)
-        masked_slot_set(state.mem_boxes, r_ind, boxes, do_update)
+        masked_stream_slots_set(((state.mem_samples, sample), (state.mem_labels, labels),
+                                 (state.mem_boxes, boxes)), r_ind, do_update)
         return dataclasses.replace(
             state,
             mem_weights=torch.where(do_update, sw_new, state.mem_weights),

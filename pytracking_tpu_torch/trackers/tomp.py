@@ -29,7 +29,8 @@ import torch
 
 from pytracking_tpu_torch.ops import dcf
 from pytracking_tpu_torch.ops.patch import sample_patch
-from pytracking_tpu_torch.trackers.base import BaseTracker, masked_slot_set, take
+from pytracking_tpu_torch.trackers.base import (BaseTracker, StreamLayout, masked_stream_slots_set,
+                                                one_stream_step)
 from pytracking_tpu_torch.trackers.dimp import (FLAG_HARD_NEG, FLAG_NAMES, FLAG_NORMAL,
                                                 FLAG_NOT_FOUND, FLAG_UNCERTAIN,
                                                 _get_iounet_box)
@@ -100,8 +101,43 @@ class ToMPState:
     max_score: torch.Tensor          # ()
 
 
+@dataclass
+class BatchedToMPState:
+    """`ToMPState` of B streams: every per-stream field with a leading
+    stream axis, the memory with the stream axis second, (M, B, ...)."""
+    pos: torch.Tensor                # (B, 2)
+    target_sz: torch.Tensor          # (B, 2)
+    target_scale: torch.Tensor       # (B,)
+    base_target_sz: torch.Tensor     # (B, 2)
+    image_sz: torch.Tensor           # (B, 2)
+    min_scale: torch.Tensor          # (B,)
+    max_scale: torch.Tensor          # (B,)
+    sigma: torch.Tensor              # (B, 2)
+    mem_samples: torch.Tensor        # (M, B, C, h, w)
+    mem_labels: torch.Tensor         # (M, B, h, w)
+    mem_boxes: torch.Tensor          # (M, B, 4)
+    mem_weights: torch.Tensor        # (M, B)
+    num_stored: torch.Tensor         # (B,) int32
+    num_init: torch.Tensor           # (B,) int32
+    prev_ind: torch.Tensor           # (B,) int32
+    scale_history: torch.Tensor      # (B, scale_history_size)
+    scale_hist_len: torch.Tensor     # (B,) int32
+    not_found_counter: torch.Tensor  # (B,) int32
+    frame_num: int                   # host count, shared by the streams
+    flag: torch.Tensor               # (B,) int32
+    max_score: torch.Tensor          # (B,)
+
+
+_LAYOUT = StreamLayout(ToMPState, BatchedToMPState,
+                       memory=("mem_samples", "mem_labels", "mem_boxes", "mem_weights"))
+
+
 class ToMPTracker(BaseTracker):
-    """One instance tracks one target in one sequence."""
+    """One instance tracks one target in one sequence; the step is written
+    over a leading stream axis (`_step_streams`), which the batched server
+    runs for B streams and the single tracker for one."""
+
+    _layout = _LAYOUT
 
     def __init__(self, params: ToMPParams, net, device="cuda"):
         super().__init__(params, device)
@@ -184,30 +220,33 @@ class ToMPTracker(BaseTracker):
                             im_sz=image_sz)
 
     def _sample_geometry(self, coords):
-        """Centre and scale of a sampled extent [y0, x0, y1, x1]."""
-        sample_pos = 0.5 * (coords[:2] + coords[2:])
-        sample_scale = torch.sqrt(torch.prod((coords[2:] - coords[:2]) / self._support))
+        """Centre and scale of sampled extents [y0, x0, y1, x1] (..., 4)."""
+        sample_pos = 0.5 * (coords[..., :2] + coords[..., 2:])
+        sample_scale = torch.sqrt(torch.prod((coords[..., 2:] - coords[..., :2]) / self._support,
+                                             -1))
         return sample_pos, sample_scale
 
     def _label(self, pos, sample_pos, sample_scale, sigma) -> torch.Tensor:
-        """Gaussian label (h, w) centred on `pos`, offset from the grid centre."""
+        """Gaussian labels (..., h, w) centred on `pos` (..., 2), offset from
+        the grid centre; sample_scale (...), sigma (..., 2)."""
         feat_sz = self.params.train_feature_size
-        center = feat_sz * (pos - sample_pos) / (sample_scale * self._support)
-        return dcf.gauss_2d((feat_sz, feat_sz), sigma, center[None])[0]
+        center = feat_sz * (pos - sample_pos) / (sample_scale[..., None] * self._support)
+        labels = dcf.gauss_2d((feat_sz, feat_sz), sigma.reshape(-1, 2), center.reshape(-1, 2))
+        return labels.reshape(center.shape[:-1] + labels.shape[-2:])
 
     def _encode_ltrb(self, boxes: torch.Tensor) -> torch.Tensor:
-        """Dense LTRB targets of xywh boxes (M, 4) on the feature grid,
-        normalised by the sample size: (M, h, w, 4)."""
+        """Dense LTRB targets of xywh boxes (..., 4) on the feature grid,
+        normalised by the sample size: (..., h, w, 4)."""
         ss = self.params.image_sample_size
         loc = self._cell_centres
         n = loc.shape[0]
-        x1 = boxes[:, 0, None, None]
-        y1 = boxes[:, 1, None, None]
-        x2 = x1 + boxes[:, 2, None, None]
-        y2 = y1 + boxes[:, 3, None, None]
-        xs = loc[None, None, :]
-        ys = loc[None, :, None]
-        shape = (boxes.shape[0], n, n)
+        x1 = boxes[..., 0, None, None]
+        y1 = boxes[..., 1, None, None]
+        x2 = x1 + boxes[..., 2, None, None]
+        y2 = y1 + boxes[..., 3, None, None]
+        xs = loc[None, :]
+        ys = loc[:, None]
+        shape = boxes.shape[:-1] + (n, n)
         ltrb = [(xs - x1).expand(shape), (ys - y1).expand(shape), (x2 - xs).expand(shape),
                 (y2 - ys).expand(shape)]
         return torch.stack(ltrb, dim=-1) / ss
@@ -254,38 +293,59 @@ class ToMPTracker(BaseTracker):
     # ---------------------------------------------------------------- track
 
     def _track_from_patch(self, state: ToMPState, patch, coords):
+        """The step of one stream: `_step_streams` on a batch of one."""
+        return one_stream_step(self._layout, self._step_streams, state, patch, coords)
+
+    def _crop_streams(self, state: BatchedToMPState, frames):
+        """`_crop` of B streams in one batched crop: the search patches
+        (B, 3, s, s) of frames (B, 3, H, W) and their extents (B, 4)."""
+        p = self.params
+        ss = p.image_sample_size
+        return sample_patch(frames, state.pos, state.target_scale[:, None] * self._support,
+                            (ss, ss), mode=p.border_mode,
+                            max_scale_change=p.patch_max_scale_change, im_sz=state.image_sz)
+
+    def _step_streams(self, state: BatchedToMPState, patch, coords, uniform=None):
+        """One frame of B streams from their search patches (B, 3, s, s) and
+        the patches' extents (B, 4): (the new state, {'target_bbox' (B, 4),
+        'max_score' (B,), 'flag' (B,), 'score_map' (B, h, w)}), all on the
+        device; the memory is written in place. ToMP draws nothing
+        (`uniform` is unused)."""
         p = self.params
         net = self.net
         ss = p.image_sample_size
+        B = patch.shape[0]
         state = dataclasses.replace(state, frame_num=state.frame_num + 1)
-        sample_pos, sample_scale = self._sample_geometry(coords)
+        sample_pos, sample_scale = self._sample_geometry(coords)          # (B, 2), (B,)
 
-        # transductive model prediction over the memory
-        test_x = net.get_backbone_head_feat(net.extract_backbone(patch[None]))
-        test_feat = net.head.extract_head_feat(test_x[None])             # (1, 1, C, h, w)
-        slot_valid = self._slots < state.num_stored
-        gth_mask = self._slots < state.num_init                          # slot 0: first frame
-        train_ltrb = self._encode_ltrb(state.mem_boxes)[:, None]         # (M, 1, h, w, 4)
+        # transductive model prediction over each stream's memory: the
+        # streams are the predictor's sequence axis, each with its own slot
+        # masks
+        test_x = net.get_backbone_head_feat(net.extract_backbone(patch))
+        test_feat = net.head.extract_head_feat(test_x[None])             # (1, B, C, h, w)
+        slot_valid = self._slots[:, None] < state.num_stored             # (M, B)
+        gth_mask = self._slots[:, None] < state.num_init                 # slot 0: first frame
+        train_ltrb = self._encode_ltrb(state.mem_boxes)                  # (M, B, h, w, 4)
         cls_w, bbreg_w, cls_enc, bbreg_enc = net.head_get_filters_parallel(
-            state.mem_samples[:, None], test_feat, state.mem_labels[:, None], train_ltrb,
-            slot_valid, gth_mask)
-        scores = net.head_classify(cls_enc, cls_w)[0, 0]                 # (h, w)
-        bbox_preds = net.head_bbreg(bbreg_enc, bbreg_w)[0, 0]            # (4, h, w)
+            state.mem_samples, test_feat, state.mem_labels, train_ltrb, slot_valid, gth_mask)
+        scores = net.head_classify(cls_enc, cls_w)[0]                    # (B, h, w)
+        bbox_preds = net.head_bbreg(bbreg_enc, bbreg_w)[0]               # (B, 4, h, w)
 
-        flag, max_score, loc = self._localize(state, scores, sample_pos, sample_scale)
+        flag, max_score, loc = self._localize_streams(state, scores, sample_pos, sample_scale)
 
-        # direct box regression at the peak, clipped to the image
-        cell = (loc[0] * bbox_preds.shape[-1] + loc[1]).reshape(1)
-        lv = bbox_preds.flatten(1).index_select(1, cell)[:, 0] * float(ss)
-        xs_c = loc[1].float() * p.feature_stride + p.feature_stride // 2
-        ys_c = loc[0].float() * p.feature_stride + p.feature_stride // 2
-        ext_x = coords[3] - coords[1]
-        ext_y = coords[2] - coords[0]
-        x1 = (xs_c - lv[0]) / ss * ext_x + coords[1]
-        y1 = (ys_c - lv[1]) / ss * ext_y + coords[0]
-        x2 = (xs_c + lv[2]) / ss * ext_x + coords[1]
-        y2 = (ys_c + lv[3]) / ss * ext_y + coords[0]
-        H, W = state.image_sz[0], state.image_sz[1]
+        # direct box regression at each stream's peak, clipped to its image
+        cell = loc[:, 0] * bbox_preds.shape[-1] + loc[:, 1]
+        lv = bbox_preds.flatten(2).gather(2, cell[:, None, None].expand(B, 4, 1))[..., 0] \
+            * float(ss)                                                  # (B, 4)
+        xs_c = loc[:, 1].float() * p.feature_stride + p.feature_stride // 2
+        ys_c = loc[:, 0].float() * p.feature_stride + p.feature_stride // 2
+        ext_x = coords[:, 3] - coords[:, 1]
+        ext_y = coords[:, 2] - coords[:, 0]
+        x1 = (xs_c - lv[:, 0]) / ss * ext_x + coords[:, 1]
+        y1 = (ys_c - lv[:, 1]) / ss * ext_y + coords[:, 0]
+        x2 = (xs_c + lv[:, 2]) / ss * ext_x + coords[:, 1]
+        y2 = (ys_c + lv[:, 3]) / ss * ext_y + coords[:, 0]
+        H, W = state.image_sz[:, 0], state.image_sz[:, 1]
         x1 = torch.minimum(torch.clamp(x1, min=0.0), W - 10.0)
         y1 = torch.minimum(torch.clamp(y1, min=0.0), H - 10.0)
         x2 = torch.minimum(torch.maximum(x2, x1 + 10.0), W)
@@ -293,70 +353,76 @@ class ToMPTracker(BaseTracker):
         bw, bh = x2 - x1, y2 - y1
 
         found = flag != FLAG_NOT_FOUND
-        new_pos = torch.stack([y1 + bh / 2, x1 + bw / 2])
-        new_sz = torch.stack([bh, bw])
-        new_scale = torch.sqrt(torch.prod(new_sz) / torch.prod(state.base_target_sz))
+        new_pos = torch.stack([y1 + bh / 2, x1 + bw / 2], -1)
+        new_sz = torch.stack([bh, bw], -1)
+        new_scale = torch.sqrt(torch.prod(new_sz, -1) / torch.prod(state.base_target_sz, -1))
 
         # the scale-history ring and the search-area rescaling at occlusion
         Hn = p.scale_history_size
-        hist = torch.where(found, torch.cat([state.scale_history[1:], new_scale[None]]),
+        hist = torch.where(found[:, None],
+                           torch.cat([state.scale_history[:, 1:], new_scale[:, None]], -1),
                            state.scale_history)
         hist_len = torch.where(found, torch.clamp(state.scale_hist_len + 1, max=Hn),
                                state.scale_hist_len)
         nf_counter = torch.where(found, 0, state.not_found_counter + 1).to(torch.int32)
         if p.search_area_rescaling_at_occlusion:
             num_scales = torch.clamp(nf_counter, 2, 30)
-            recent = self._hist_idx >= Hn - torch.minimum(num_scales, hist_len)
-            sel = recent & (hist >= hist[-1])
-            resc = torch.where(sel, hist, 0.0).sum() / torch.clamp(sel.sum(), min=1)
+            recent = self._hist_idx >= Hn - torch.minimum(num_scales, hist_len)[:, None]
+            sel = recent & (hist >= hist[:, -1:])
+            resc = torch.where(sel, hist, 0.0).sum(-1) / torch.clamp(sel.sum(-1), min=1)
             tscale = torch.where(found, new_scale, resc)
         else:
             tscale = torch.where(found, new_scale, state.target_scale)
         state = dataclasses.replace(
-            state, pos=torch.where(found, new_pos, state.pos),
-            target_sz=torch.where(found, new_sz, state.target_sz), target_scale=tscale,
+            state, pos=torch.where(found[:, None], new_pos, state.pos),
+            target_sz=torch.where(found[:, None], new_sz, state.target_sz), target_scale=tscale,
             scale_history=hist, scale_hist_len=hist_len, not_found_counter=nf_counter)
 
-        # memory update: this frame's extracted head feature
+        # memory update: each stream's extracted head feature, masked per stream
         do_update = ((flag != FLAG_NOT_FOUND) & (flag != FLAG_UNCERTAIN)
                      & (max_score > p.conf_ths) & p.update_classifier)
         lr = torch.where(flag == FLAG_HARD_NEG, p.hard_negative_learning_rate, p.learning_rate)
-        target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos, sample_scale,
-                                     self._support)
+        target_box = _get_iounet_box(state.pos, state.target_sz, sample_pos,
+                                     sample_scale[:, None], self._support)
         label = self._label(state.pos, sample_pos, sample_scale, state.sigma)
-        state = self._update_memory(state, test_feat[0, 0], label, target_box, lr, do_update)
+        state = self._update_memory_streams(state, test_feat[0], label, target_box, lr,
+                                            do_update)
 
         state = dataclasses.replace(state, flag=flag, max_score=max_score)
         bbox = torch.cat([state.pos.flip(-1) - (state.target_sz.flip(-1) - 1) / 2,
-                          state.target_sz.flip(-1)])
+                          state.target_sz.flip(-1)], -1)
         return state, {"target_bbox": bbox, "max_score": max_score, "flag": flag,
                        "score_map": scores}
 
     # ---------------------------------------------------------------- localisation
 
-    def _localize(self, state: ToMPState, scores, sample_pos, sample_scale):
-        """Localisation on the (h, w) score map (a 1x1 filter: the feature
-        grid) with the distractor analysis when `advanced_localization`:
-        (flag () int32, max score (), the chosen peak's (row, col) int64)."""
+    def _localize_streams(self, state: BatchedToMPState, scores, sample_pos, sample_scale):
+        """Localisation per stream on the (B, h, w) score maps (a 1x1 filter:
+        the feature grid) with the distractor analysis when
+        `advanced_localization`: (flag (B,) int32, max score (B,), the
+        chosen peak's (row, col) (B, 2) int64)."""
         p = self.params
-        h, w = scores.shape
+        h, w = scores.shape[-2:]
+        B = scores.shape[0]
         max_score1, max_disp1 = dcf.max2d(scores)
         if not p.advanced_localization:
-            return (torch.zeros((), dtype=torch.int32, device=self.device), max_score1,
+            return (torch.zeros((B,), dtype=torch.int32, device=self.device), max_score1,
                     max_disp1)
-        disp_to_img = self._cell_px * sample_scale
+        disp_to_img = self._cell_px * sample_scale[:, None]                  # (B, 2)
         d1 = max_disp1.float()
         target_disp1 = d1 - self._score_center
-        target_neigh_sz = p.target_neighborhood_scale * (state.target_sz / sample_scale) \
-            / self._cell_px
-        in_neigh = ((torch.abs(self._iy - d1[0]) <= target_neigh_sz[0] / 2 + 0.5)
-                    & (torch.abs(self._ix - d1[1]) <= target_neigh_sz[1] / 2 + 0.5))
+        target_neigh_sz = p.target_neighborhood_scale * \
+            (state.target_sz / sample_scale[:, None]) / self._cell_px
+        in_neigh = ((torch.abs(self._iy - d1[:, 0, None, None])
+                     <= target_neigh_sz[:, 0, None, None] / 2 + 0.5)
+                    & (torch.abs(self._ix - d1[:, 1, None, None])
+                       <= target_neigh_sz[:, 1, None, None] / 2 + 0.5))
         max_score2, max_disp2 = dcf.max2d(torch.where(in_neigh, 0.0, scores))
         target_disp2 = max_disp2.float() - self._score_center
 
         prev_target_vec = (state.pos - sample_pos) / disp_to_img
-        disp_norm1 = torch.sqrt(torch.sum((target_disp1 - prev_target_vec) ** 2))
-        disp_norm2 = torch.sqrt(torch.sum((target_disp2 - prev_target_vec) ** 2))
+        disp_norm1 = torch.sqrt(torch.sum((target_disp1 - prev_target_vec) ** 2, -1))
+        disp_norm2 = torch.sqrt(torch.sum((target_disp2 - prev_target_vec) ** 2, -1))
         disp_threshold = p.displacement_scale * math.sqrt(h * w) / 2
 
         distractor = max_score2 > p.distractor_threshold * max_score1
@@ -366,55 +432,57 @@ class ToMPTracker(BaseTracker):
         hard_neg2 = (~distractor & (max_score2 > p.hard_negative_threshold * max_score1)
                      & (max_score2 > p.target_not_found_threshold))
 
-        flag = torch.zeros((), dtype=torch.int32, device=self.device)
+        flag = torch.zeros((B,), dtype=torch.int32, device=self.device)
         flag = torch.where(hard_neg2, FLAG_HARD_NEG, flag)
         flag = torch.where(uncertain_both, FLAG_UNCERTAIN, flag)
         flag = torch.where(hn2, FLAG_HARD_NEG, flag)
-        loc = torch.where(hn2, max_disp2, max_disp1)
+        loc = torch.where(hn2[:, None], max_disp2, max_disp1)
         flag = torch.where(hn1, FLAG_HARD_NEG, flag)
         # the score thresholds dominate, the not-found one most
         flag = torch.where(max_score1 < p.hard_sample_threshold, FLAG_HARD_NEG, flag)
         flag = torch.where(max_score1 < p.uncertain_threshold, FLAG_UNCERTAIN, flag)
         not_found = max_score1 < p.target_not_found_threshold
         flag = torch.where(not_found, FLAG_NOT_FOUND, flag)
-        loc = torch.where(not_found, max_disp1, loc)
+        loc = torch.where(not_found[:, None], max_disp1, loc)
         return flag, max_score1, loc
 
     # ---------------------------------------------------------------- memory
 
-    def _update_memory(self, state: ToMPState, sample, label, target_box, lr,
-                       do_update) -> ToMPState:
-        """Weighted-replacement update of the M slots, masked by `do_update`:
-        the new sample fills the next empty slot, else replaces the lightest
-        one after the initial ones (the first on ties)."""
+    def _update_memory_streams(self, state: BatchedToMPState, sample, label, target_box, lr,
+                               do_update) -> BatchedToMPState:
+        """Weighted-replacement update of each stream's M slots, masked by
+        `do_update` (B,): the new sample (B, C, h, w), label (B, h, w) and
+        box (B, 4) fill the stream's next empty slot, else replace its
+        lightest one after the initial ones (the first on ties); the B
+        slots are written by one indexed write in place."""
         p = self.params
         M = p.sample_memory_size
-        sw = state.mem_weights
+        sw = state.mem_weights                                               # (M, B)
         num_init = state.num_init
         num_stored = state.num_stored
         init_w = p.init_samples_minimum_weight
-        idx = self._slots
+        idx = self._slots[:, None]
 
         s_ind = num_init if init_w > 0 else 0
-        r_ind_full = torch.argmin(torch.where(idx >= s_ind, sw, math.inf))
-        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)
+        r_ind_full = torch.argmin(torch.where(idx >= s_ind, sw, math.inf), dim=0)
+        r_ind = torch.where(num_stored < M, num_stored.long(), r_ind_full)     # (B,)
 
         prev = state.prev_ind
         sw_new = torch.where(prev < 0, sw / (1 - lr), sw)
-        new_w = torch.where(prev < 0, lr, take(sw, torch.clamp(prev, min=0)) / (1 - lr))
+        prev_w = sw.gather(0, torch.clamp(prev, min=0).long()[None])[0]
+        new_w = torch.where(prev < 0, lr, prev_w / (1 - lr))
         sw_new = torch.where(idx == r_ind, new_w, sw_new)
-        sw_new = sw_new / sw_new.sum()
+        sw_new = sw_new / sw_new.sum(0)
         if init_w > 0:
             init_mask = idx < num_init
-            init_sum = torch.where(init_mask, sw_new, 0.0).sum()
-            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum()
+            init_sum = torch.where(init_mask, sw_new, 0.0).sum(0)
+            rest_sum = torch.where(~init_mask, sw_new, 0.0).sum(0)
             sw_adj = torch.where(init_mask, init_w / torch.clamp(num_init, min=1),
                                  sw_new / (init_w + rest_sum))
             sw_new = torch.where(init_sum < init_w, sw_adj, sw_new)
 
-        masked_slot_set(state.mem_samples, r_ind, sample, do_update)
-        masked_slot_set(state.mem_labels, r_ind, label, do_update)
-        masked_slot_set(state.mem_boxes, r_ind, target_box, do_update)
+        masked_stream_slots_set(((state.mem_samples, sample), (state.mem_labels, label),
+                                 (state.mem_boxes, target_box)), r_ind, do_update)
         return dataclasses.replace(
             state,
             mem_weights=torch.where(do_update, sw_new, state.mem_weights),

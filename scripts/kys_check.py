@@ -58,13 +58,13 @@ def scores(args):
                                      dimp_threshold=dimp_thr)
         tracker = t_kys.KYSTracker(params, spec.net, device="cuda")
         dimp_peaks = []
-        localize = tracker._localize_fused
+        localize = tracker._localize_fused_streams
 
         def recording(state, fused, dimp_win, dimp_raw, *a, localize=localize):
             dimp_peaks.append(dimp_raw.max())
             return localize(state, fused, dimp_win, dimp_raw, *a)
 
-        tracker._localize_fused = recording
+        tracker._localize_fused_streams = recording
         tracker.initialize(frames[0], chip_smoke.DIMP_INIT)
         outs, before, valid = [], [], []
         for im in frames[1:]:
@@ -101,7 +101,7 @@ def stages(args):
         "previous-frame alignment (shift_features)": (t_kys, "shift_features"),
         "cost volume": (t_kysnet, "cost_volume_abs"),
         "response predictor": (tracker.net.predictor, "forward"),
-        "fused localisation": (tracker, "_localize_fused"),
+        "fused localisation": (tracker, "_localize_fused_streams"),
     })
     frames = _frames(chip_smoke.N_FRAMES + n)
     tracker.initialize(frames[0], chip_smoke.DIMP_INIT)

@@ -69,7 +69,7 @@ def launches(args):
             server.track(chip_smoke.stream_batch(bg, B, t))
         steps = [_count(lambda t=t: server.track(chip_smoke.stream_batch(bg, B, t)))
                  for t in range(4, 7)]
-        tick = _count(server._update_deferred)
+        tick = _count(lambda: setattr(server, "states", server.tracker._serve_tick(server.states)))
         print(f"{name} on {device}: B={B}: {steps} operators per step, the deferred "
               f"update {tick}", flush=True)
 

@@ -99,8 +99,8 @@ TOMP_STAGES = {
     "filter predictor (transformer)": ("net", "head_get_filters_parallel"),
     "classifier": ("net", "head_classify"),
     "box regressor": ("net", "head_bbreg"),
-    "localisation": ("", "_localize"),
-    "memory update": ("", "_update_memory"),
+    "localisation": ("", "_localize_streams"),
+    "memory update": ("", "_update_memory_streams"),
 }
 TAMOS_STAGES = {
     "backbone": ("net", "extract_backbone"),
@@ -109,8 +109,8 @@ TAMOS_STAGES = {
     "FPN": ("net", "run_fpn"),
     "classifier": ("net", "classify_trafo"),
     "box regressor": ("net", "bbreg"),
-    "localisation": ("", "_localize"),
-    "memory update": ("", "_update_memory"),
+    "localisation": ("", "_localize_streams"),
+    "memory update": ("", "_update_memory_streams"),
 }
 
 

@@ -279,7 +279,7 @@ def test_server_matches_single_trackers(nets, case):
     flags = []
     for t in range(1, T + 1):
         for b, tr in enumerate(singles):
-            tr.state = t_dimp.stream_state(server.states, b)
+            tr.state = t_dimp.DiMPTracker.stream_state(server.states, b)
         boxes = server.track(batch(t))
         for b, tr in enumerate(singles):
             out = tr.track(frame(b, t))
@@ -287,7 +287,7 @@ def test_server_matches_single_trackers(nets, case):
                 tr.update_classifier_deferred()
             assert t_dimp.FLAG_NAMES[server.flags[b]] == out["flag"], (t, b)
             np.testing.assert_allclose(boxes[b], out["target_bbox"], atol=1e-3, rtol=0)
-            single = t_dimp.stream_state(server.states, b)
+            single = t_dimp.DiMPTracker.stream_state(server.states, b)
             _close(single.target_filter.numpy(), tr.state.target_filter.numpy())
             assert int(single.prev_ind) == int(tr.state.prev_ind)
         flags.append(server.flags.tolist())
@@ -365,7 +365,7 @@ def test_one_stream_wrappers_match_the_stream_axis(nets, part):
     for b in range(B):
         tr.initialize(frame(b, 0), {"init_bbox": init_box(b)})
         states.append(tr.state)
-    stacked = t_dimp.stack_states(states)
+    stacked = t_dimp.DiMPTracker.stack_states(states)
     rng = np.random.RandomState(7)
     sample_pos = stacked.pos + torch.from_numpy(rng.randn(B, 2).astype(np.float32))
     sample_scale = stacked.target_scale * torch.from_numpy(rng.uniform(0.9, 1.1, B)
@@ -375,8 +375,8 @@ def test_one_stream_wrappers_match_the_stream_axis(nets, part):
         scores[0, 3, 3], scores[1, 1, 5], scores[1, 5, 1], scores[2, 4, 2] = 1.0, 0.9, 0.85, 0.6
         got = tr._localize_streams(stacked, scores, sample_pos, sample_scale)
         for b in range(B):
-            ref = tr._localize(t_dimp.stream_state(stacked, b), scores[b], sample_pos[b],
-                               sample_scale[b])
+            ref = tr._localize(t_dimp.DiMPTracker.stream_state(stacked, b), scores[b],
+                               sample_pos[b], sample_scale[b])
             np.testing.assert_allclose(got[0][b].numpy(), ref[0].numpy(), atol=1e-5, rtol=0)
             assert int(got[1][b]) == int(ref[1]) and float(got[2][b]) == float(ref[2])
         assert len({int(f) for f in got[1]}) > 1, got[1]
@@ -390,7 +390,7 @@ def test_one_stream_wrappers_match_the_stream_axis(nets, part):
                                  lambda shape: jitter)
         for b in range(B):
             tr._uniform = lambda shape, u=jitter[b]: u
-            ref = tr._refine_target_box(t_dimp.stream_state(stacked, b),
+            ref = tr._refine_target_box(t_dimp.DiMPTracker.stream_state(stacked, b),
                                         {k: v[b:b + 1] for k, v in feat.items()},
                                         sample_pos[b], sample_scale[b], found[b])
             for x, name in zip(got, ("pos", "target_sz", "target_scale")):
@@ -408,7 +408,7 @@ def test_one_stream_wrappers_match_the_stream_axis(nets, part):
         do_update = torch.tensor([True, True, False])
         key = torch.from_numpy(rng.rand(M, B).astype(np.float32)) \
             if part == "memory_replace_key" else None
-        singles = [t_dimp.stream_state(stacked, b) for b in range(B)]
+        singles = [t_dimp.DiMPTracker.stream_state(stacked, b) for b in range(B)]
         new = tr._update_memory_streams(stacked, sample, box, lr, do_update, key)
         for b, single in enumerate(singles):
             ref = tr._update_memory_masked(single, sample[b], box[b], lr[b], do_update[b],
@@ -434,22 +434,23 @@ def test_unequal_frame_sizes_raise(nets):
 
 
 def test_server_refuses_a_tracker_with_another_step(nets):
-    """KYS and KeepTrack subclass the DiMP tracker with steps of their own;
-    the stream-axis step is DiMP's, so the server refuses them."""
-    from pytracking_tpu_torch.trackers.kys import KYSTracker
+    """KeepTrack subclasses the DiMP tracker with a step of its own (the
+    candidate association) and gives no stream-axis step for it, so the
+    server refuses it."""
+    from pytracking_tpu_torch.trackers.keep_track import KeepTrackTracker
 
-    with pytest.raises(NotImplementedError, match="DiMP family"):
-        BatchedTrackerServer(KYSTracker, t_dimp.DiMPParams(**_kw()), nets[2], device="cpu")
+    with pytest.raises(NotImplementedError, match="no stream-axis counterpart"):
+        BatchedTrackerServer(KeepTrackTracker, t_dimp.DiMPParams(**_kw()), nets[2], device="cpu")
 
 
 def test_stack_and_stream_state_round_trip(nets):
     """`stack_states` then `stream_state` gives each stream's state back,
     as copies."""
     singles = _singles(nets[2], _kw())
-    stacked = t_dimp.stack_states([tr.state for tr in singles])
+    stacked = t_dimp.DiMPTracker.stack_states([tr.state for tr in singles])
     assert stacked.mem_samples.shape[:2] == (8, B)
     for b, tr in enumerate(singles):
-        back = t_dimp.stream_state(stacked, b)
+        back = t_dimp.DiMPTracker.stream_state(stacked, b)
         for f in dataclasses.fields(back):
             x, y = getattr(back, f.name), getattr(tr.state, f.name)
             if isinstance(x, torch.Tensor):
